@@ -1,0 +1,63 @@
+"""Carry problem state across from arrays: the port's "weights".
+
+A problem of the JAX reference, turned into numpy leaves (``np.asarray`` of
+each field), becomes the port's AllocationProblem on a device, so both
+packages can solve the identical problem. The dictionary holds the
+reference's ``AllocationProblem`` field names (``K``, ``E``, ``c``, ``d``,
+``mu``, ``g``, ``lb``, ``ub``, ``mask``) and ``params``, a mapping of the
+``PenaltyParams`` names (``alpha`` ... ``gamma``).
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from .core.problem import AllocationProblem, PenaltyParams
+from .core.terms import NOT_PORTED
+from .device import DeviceLike, resolve_device
+from .fleet.batching import FleetBatch
+
+LEAVES = ("K", "E", "c", "d", "mu", "g", "lb", "ub", "mask")
+
+
+def problem_arrays(prob) -> dict:
+    """The numpy leaves of any problem with the reference's field names
+    (a reference problem, or the port's): the input of
+    :func:`problem_from_arrays`."""
+    host = lambda a: np.array(a.detach().cpu() if torch.is_tensor(a) else a,
+                              np.float32)
+    out = {k: host(getattr(prob, k)) for k in LEAVES}
+    out["params"] = {f: host(getattr(prob.params, f))
+                     for f in PenaltyParams._fields}
+    if prob.terms:
+        raise NotImplementedError(NOT_PORTED)
+    return out
+
+
+def problem_from_arrays(arrays: Mapping, device: DeviceLike = None
+                        ) -> AllocationProblem:
+    """The port's AllocationProblem from the reference's fields as numpy
+    arrays (single or stacked, as the arrays are), float32 on ``device``."""
+    if arrays.get("terms"):
+        raise NotImplementedError(NOT_PORTED)
+    dev = resolve_device(device)
+    put = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    params = PenaltyParams(*(put(arrays["params"][f])
+                             for f in PenaltyParams._fields))
+    return AllocationProblem(params=params,
+                             **{k: put(arrays[k]) for k in LEAVES})
+
+
+def fleet_batch_from_arrays(arrays: Mapping, n_true, m_true, p_true,
+                            active: Optional[np.ndarray] = None,
+                            device: DeviceLike = None) -> FleetBatch:
+    """The port's FleetBatch from a stacked reference batch: its problem's
+    fields as numpy arrays plus the per-tenant true extents."""
+    return FleetBatch(
+        problem=problem_from_arrays(arrays, device),
+        n_true=np.asarray(n_true, np.int64),
+        m_true=np.asarray(m_true, np.int64),
+        p_true=np.asarray(p_true, np.int64),
+        active=None if active is None else np.asarray(active, bool))

@@ -1,0 +1,99 @@
+"""The eq. (1) objective, its analytic gradient, and the constraint
+machinery — port of ``repro.core.objective``.
+
+x is (..., n) for a single problem and (B, ..., n) for a stacked one; the
+value is per point and the gradient is shaped like x. On a CUDA tensor the
+four base terms come from the hand-written ``alloc_objective`` kernel (one
+launch for all points); on a CPU tensor they are the registry sum of
+``repro_torch.core.terms``, as in the reference. ``use_kernel=False`` asks
+for the registry sum on any device: the plain path a run can be compared
+with, never a fallback.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..kernels.alloc_objective import ops
+from . import terms as _terms
+from .problem import AllocationProblem, is_stacked, lane, matvec
+
+
+def _kernel_route(x: torch.Tensor, use_kernel: bool) -> bool:
+    return use_kernel and x.is_cuda
+
+
+def _kernel_value_and_grad(prob: AllocationProblem, x: torch.Tensor,
+                           need_grad: bool):
+    """The kernel over every point of x at once: (f (...), g or None)."""
+    n = x.shape[-1]
+    if is_stacked(prob):
+        X = x.reshape(x.shape[0], -1, n).contiguous()
+        if need_grad:
+            f, g = ops.fleet_value_and_grad(prob, X)
+            return f.reshape(x.shape[:-1]), g.reshape(x.shape)
+        return ops.fleet_value(prob, X).reshape(x.shape[:-1]), None
+    f, g = ops.batched_value_and_grad(prob, x.reshape(-1, n).contiguous())
+    return f.reshape(x.shape[:-1]), g.reshape(x.shape)
+
+
+def objective_terms(prob: AllocationProblem, x: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+    """Each named term of f(x), one K@x / E@x pair shared by all."""
+    return _terms.term_values(prob, x, matvec(prob, prob.K, x),
+                              matvec(prob, prob.E, x))
+
+
+def objective(prob: AllocationProblem, x: torch.Tensor,
+              use_kernel: bool = True) -> torch.Tensor:
+    """f(x), one value per point."""
+    if _kernel_route(x, use_kernel):
+        _terms.require_no_terms(prob)
+        return _kernel_value_and_grad(prob, x, need_grad=False)[0]
+    return _terms.sum_terms(objective_terms(prob, x))
+
+
+def grad_objective(prob: AllocationProblem, x: torch.Tensor,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """Analytic gradient (eq. 6/8):
+    c + a*b1*E^T e^{-b1 Ex} - g*b2*E^T 1/(1+b2 Ex) - 2*b3*K^T max(d-Kx, 0)."""
+    if _kernel_route(x, use_kernel):
+        return value_and_grad(prob, x, use_kernel)[1]
+    return _terms.sum_terms(_terms.term_grads(
+        prob, x, matvec(prob, prob.K, x), matvec(prob, prob.E, x)))
+
+
+def value_and_grad(prob: AllocationProblem, x: torch.Tensor,
+                   use_kernel: bool = True):
+    """(f(x), grad f(x)) from one K@x / E@x pair (one kernel launch)."""
+    if _kernel_route(x, use_kernel):
+        _terms.require_no_terms(prob)
+        return _kernel_value_and_grad(prob, x, need_grad=True)
+    Kx = matvec(prob, prob.K, x)
+    Ex = matvec(prob, prob.E, x)
+    return (_terms.sum_terms(_terms.term_values(prob, x, Kx, Ex)),
+            _terms.sum_terms(_terms.term_grads(prob, x, Kx, Ex)))
+
+
+def constraint_residuals(prob: AllocationProblem, x: torch.Tensor):
+    """Positive residual == satisfied. Returns (lower (..., m), upper)."""
+    Kx = matvec(prob, prob.K, x)
+    return (Kx - lane(prob, prob.d - prob.mu, Kx),
+            lane(prob, prob.d + prob.g, Kx) - Kx)
+
+
+def is_feasible(prob: AllocationProblem, x: torch.Tensor, tol: float = 1e-4
+                ) -> torch.Tensor:
+    """Band + box feasibility within ``tol``, one flag per point."""
+    lo, hi = constraint_residuals(prob, x)
+    box = ((x >= lane(prob, prob.lb, x) - tol).all(-1)
+           & (x <= lane(prob, prob.ub, x) + tol).all(-1))
+    return (lo >= -tol).all(-1) & (hi >= -tol).all(-1) & box
+
+
+def project(prob: AllocationProblem, x: torch.Tensor) -> torch.Tensor:
+    """Project onto the box [lb, ub] intersected with the mask support."""
+    return (torch.minimum(torch.maximum(x, lane(prob, prob.lb, x)),
+                          lane(prob, prob.ub, x))
+            * lane(prob, prob.mask, x))

@@ -1,0 +1,318 @@
+"""solve_fleet and solve_fleet_step — port of ``repro.fleet.solver``.
+
+``solve_fleet`` mirrors the reference's hand-batched hot loop: phase-1 ->
+barrier/penalty PGD with a Barzilai-Borwein step and an Armijo ladder ->
+feasibility restoration -> rounding, carrying the full (B tenants,
+S starts) state through every step. ``solve_fleet_step`` is the warm tick:
+the incremental solve and rounding for every tenant at once.
+
+Every eq. (1) evaluation goes through ``repro_torch.kernels.
+alloc_objective``: the iterate's value and gradient (the reference's
+Pallas call, ``fleet/solver.py:179`` there), the ladder's B*S*L candidate
+values, the per-start relaxed objective, the objectives after rounding,
+and the warm tick's values and gradients. In the reference the last four
+are plain jnp; here, on the card, they are launches of the kernel (its
+value-only form where no gradient is needed), so no plain eq. (1) runs
+on a CUDA tensor in ``hot_loop="kernel"``. ``hot_loop="ref"`` runs the
+plain PyTorch versions instead, on any device — the path a run is
+compared with. On a CPU tensor both run the plain versions.
+``hot_loop="vmap"`` (vmap of the single-problem solver) is not ported.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..core import objective as obj
+from ..core.incremental import solve_incremental_info
+from ..core.multistart import make_starts
+from ..core.pgd import SYNC_EVERY, ladder_ratios
+from ..core.problem import AllocationProblem, problem_to
+from ..core.rounding import round_and_polish
+from ..core.solver import SolverConfig, phase1_point
+from ..device import DeviceLike, resolve_device
+from ..kernels.alloc_objective import ops
+from .batching import FleetBatch, stack_problems, tenant_problem
+
+HOT_LOOPS = ("kernel", "ref")
+
+
+class FleetSolveResult(NamedTuple):
+    """Per-tenant outputs of a batched fleet solve (leading axis = tenant)."""
+
+    x: torch.Tensor            # (B, n) best relaxed solution per tenant
+    fun: torch.Tensor          # (B,) objective at x
+    x_int: torch.Tensor        # (B, n) best rounded integer solution
+    fun_int: torch.Tensor      # (B,) objective at x_int
+    feasible: torch.Tensor     # (B,) integer-solution feasibility
+    used_barrier: torch.Tensor  # (B, S)
+    all_fun: torch.Tensor      # (B, S) relaxed objective per start
+    iters: torch.Tensor        # total PGD iterations (fleet-wide)
+    x_int_all: torch.Tensor    # (B, S, n) rounded candidate per start
+    fun_int_all: torch.Tensor  # (B, S) objective per rounded candidate
+    feas_int_all: torch.Tensor  # (B, S) integer feasibility per candidate
+
+
+class FleetStepResult(NamedTuple):
+    """One batched incremental tick over the whole fleet."""
+
+    x: torch.Tensor         # (B, n) relaxed incremental solution
+    x_int: torch.Tensor     # (B, n) rounded allocation actually deployed
+    fun_int: torch.Tensor   # (B,) objective at x_int
+    feasible: torch.Tensor  # (B,) integer-solution feasibility
+    iters: torch.Tensor     # (B,) adaptive-PGD iterations per lane
+
+
+def _use_kernel(hot_loop: str) -> bool:
+    if hot_loop == "vmap":
+        raise NotImplementedError('hot_loop="vmap" is not ported yet')
+    if hot_loop not in HOT_LOOPS:
+        raise ValueError(f"hot_loop must be one of {HOT_LOOPS}, "
+                         f"got {hot_loop!r}")
+    return hot_loop == "kernel"
+
+
+# ---------------------------------------------------------------------------
+# batched constraint machinery: X is (B, T, n) — starts or the flattened
+# candidate ladder
+# ---------------------------------------------------------------------------
+
+
+def _constraint_values(prob, X, barrier_t, penalty_w):
+    """Barrier and penalty VALUES (B, T)."""
+    lo, hi = obj.constraint_residuals(prob, X)         # (B, T, m) each
+    safe = (lo > 0).all(-1) & (hi > 0).all(-1)
+    one = torch.ones_like(lo)
+    bval = -(1.0 / barrier_t) * (
+        torch.log(torch.where(lo > 0, lo, one)).sum(-1)
+        + torch.log(torch.where(hi > 0, hi, one)).sum(-1))
+    bval = torch.where(safe, bval, torch.full_like(bval, float("inf")))
+    vlo = torch.clamp(-lo, min=0.0)
+    vhi = torch.clamp(-hi, min=0.0)
+    qval = penalty_w * ((vlo ** 2).sum(-1) + (vhi ** 2).sum(-1))
+    return bval, qval
+
+
+def _constraint_grads(prob, X, barrier_t, penalty_w):
+    """Barrier and penalty GRADIENTS (B, T, n)."""
+    lo, hi = obj.constraint_residuals(prob, X)
+    lo_c = torch.clamp(lo, min=1e-9)
+    hi_c = torch.clamp(hi, min=1e-9)
+    KT = lambda v: torch.einsum("bmn,btm->btn", prob.K, v)
+    bgrad = (1.0 / barrier_t) * (KT(1.0 / hi_c) - KT(1.0 / lo_c))
+    vlo = torch.clamp(-lo, min=0.0)
+    vhi = torch.clamp(-hi, min=0.0)
+    qgrad = penalty_w * 2.0 * (KT(vhi) - KT(vlo))
+    return bgrad, qgrad
+
+
+def _pgd_fleet(prob, X0, barrier_t, penalty_w, strict, cfg: SolverConfig,
+               use_kernel: bool):
+    """Batched inner PGD over (B, S) simultaneous solves.
+
+    Per-element state mirrors the reference's ``_pgd_fleet``; elements that
+    finished freeze in place while the rest iterate. ``it`` counts the
+    iterations in which any element was still live, as the reference's
+    global while-loop counter does; the host reads the done mask only every
+    ``SYNC_EVERY`` iterations."""
+    B, S, n = X0.shape
+    L = cfg.n_backtracks
+
+    def F_values(Xc):
+        """Composite values (B, T) for Xc (B, T, n); T is S or S*L."""
+        f = ops.fleet_value(prob, Xc, use_kernel=use_kernel)
+        bval, qval = _constraint_values(prob, Xc, barrier_t, penalty_w)
+        s = strict.repeat_interleave(Xc.shape[1] // S, dim=1)
+        return f + torch.where(s, bval, qval)
+
+    def G_at(Xc):
+        """Composite gradient at the (B, S, n) iterate."""
+        _, g = ops.fleet_value_and_grad(prob, Xc, use_kernel=use_kernel)
+        bgrad, qgrad = _constraint_grads(prob, Xc, barrier_t, penalty_w)
+        return g + torch.where(strict[..., None], bgrad, qgrad)
+
+    ratios = ladder_ratios(cfg, X0.device)             # 1 upscale, as core
+    x = obj.project(prob, X0)
+    fx = F_values(x)
+    g = G_at(x)
+    bb = torch.full((B, S), cfg.step0, dtype=torch.float32, device=X0.device)
+    it = torch.zeros((), dtype=torch.int64, device=X0.device)
+    done = torch.zeros((B, S), dtype=torch.bool, device=X0.device)
+    for k in range(cfg.max_iters):
+        if k % SYNC_EVERY == 0 and k > 0 and bool(done.all()):
+            break
+        steps = bb[..., None] * ratios                                # (B,S,L)
+        cands = obj.project(prob, x[:, :, None, :]
+                            - steps[..., None] * g[:, :, None, :])    # (B,S,L,n)
+        Fc = F_values(cands.reshape(B, S * L, n)).reshape(B, S, L)
+        # Armijo on the projected step: F(x+) <= F(x) + c * g^T (x+ - x)
+        dec = Fc - (fx[..., None] + cfg.armijo_c *
+                    (g[:, :, None, :] * (cands - x[:, :, None, :])).sum(-1))
+        ok = (dec <= 0.0) & torch.isfinite(Fc)
+        idx = ok.to(torch.float32).argmax(-1)         # first (largest) step
+        any_ok = ok.any(-1)
+        x_sel = cands.gather(2, idx[..., None, None].expand(B, S, 1, n))
+        x_new = torch.where(any_ok[..., None], x_sel.squeeze(2), x)
+        f_new = torch.where(any_ok, Fc.gather(2, idx[..., None]).squeeze(2),
+                            fx)
+        g_new = G_at(x_new)
+        # BB1 step from the accepted move (safeguarded into [1e-8, 1e4])
+        dx = x_new - x
+        dg = g_new - g
+        denom = (dx * dg).sum(-1)
+        bb_new = torch.where(denom.abs() > 1e-12,
+                             ((dx * dx).sum(-1) / denom).abs(),
+                             torch.full_like(denom, cfg.step0))
+        bb_new = bb_new.clamp(1e-8, 1e4)
+        bb_new = torch.where(any_ok, bb_new, bb * cfg.backtrack ** L)
+        move = dx.abs().amax(-1)
+        newly_done = ((~any_ok) & (bb < 1e-7)) | (any_ok & (move < cfg.tol))
+        # freeze elements that were already done before this iteration
+        x = torch.where(done[..., None], x, x_new)
+        fx = torch.where(done, fx, f_new)
+        g = torch.where(done[..., None], g, g_new)
+        bb = torch.where(done, bb, bb_new)
+        it = it + (~done).any()
+        done = done | newly_done
+    return x, fx, it
+
+
+def _relax(prob, starts, cfg: SolverConfig, use_kernel: bool):
+    """Hand-batched phase-1 -> barrier PGD -> feasibility restoration."""
+    x = phase1_point(prob, starts)                                 # (B, S, n)
+    lo, hi = obj.constraint_residuals(prob, x)
+    strict = (lo.amin(-1) > 1e-3) & (hi.amin(-1) > 1e-3)           # (B, S)
+    f32 = dict(dtype=torch.float32, device=starts.device)
+    penalty_w = torch.tensor(cfg.penalty_w, **f32)
+    iters = torch.zeros((), dtype=torch.int64, device=starts.device)
+    for r in range(cfg.barrier_rounds):
+        t = cfg.barrier_t0 * torch.tensor(cfg.barrier_kappa, **f32) ** float(r)
+        x, _, it = _pgd_fleet(prob, x, t, penalty_w, strict, cfg, use_kernel)
+        iters = iters + it
+    # feasibility restoration (no-op when already feasible)
+    x = phase1_point(prob, x, steps=100, margin_frac=0.0)
+    fun = ops.fleet_value(prob, x, use_kernel=use_kernel)          # (B, S)
+    feas = obj.is_feasible(prob, x, 1e-3)
+    return x, fun, feas, strict, iters
+
+
+def _solve_fleet_impl(prob, starts, cfg: SolverConfig, use_kernel: bool
+                      ) -> FleetSolveResult:
+    B = starts.shape[0]
+    x, fun, feas_rel, strict, iters = _relax(prob, starts, cfg, use_kernel)
+    # round EVERY start (relaxed merit predicts integer cost poorly)
+    x_int = round_and_polish(prob, x, use_kernel=use_kernel)       # (B, S, n)
+    f_int = obj.objective(prob, x_int, use_kernel=use_kernel)
+    feas_int = obj.is_feasible(prob, x_int, 1e-3)
+
+    rows = torch.arange(B, device=starts.device)
+    j = torch.where(feas_int, f_int, f_int + 1e12).argmin(1)       # (B,)
+    i = torch.where(feas_rel, fun, fun + 1e12).argmin(1)
+    return FleetSolveResult(
+        x=x[rows, i], fun=fun[rows, i],
+        x_int=x_int[rows, j], fun_int=f_int[rows, j],
+        feasible=feas_int[rows, j],
+        used_barrier=strict, all_fun=fun, iters=iters,
+        x_int_all=x_int, fun_int_all=f_int, feas_int_all=feas_int)
+
+
+def _as_batch(fleet, device: torch.device) -> FleetBatch:
+    """A FleetBatch on ``device`` from any accepted fleet form."""
+    if isinstance(fleet, FleetBatch):
+        return fleet._replace(problem=problem_to(fleet.problem, device))
+    if isinstance(fleet, AllocationProblem):       # already stacked
+        B, m, n = fleet.K.shape
+        full = lambda v: np.full(B, v, np.int64)
+        return FleetBatch(problem_to(fleet, device), full(n), full(m),
+                          full(fleet.E.shape[1]))
+    return stack_problems(list(fleet), device=device)
+
+
+def solve_fleet(
+    fleet: Union[FleetBatch, Sequence[AllocationProblem], AllocationProblem],
+    n_starts: int = 4,
+    seed: int = 0,
+    cfg: Optional[SolverConfig] = None,
+    starts: Optional[torch.Tensor] = None,
+    hot_loop: str = "kernel",
+    device: DeviceLike = None,
+) -> FleetSolveResult:
+    """Solve every tenant problem in one batched pass on ``device``.
+
+    ``fleet`` may be a FleetBatch, a list of (ragged) AllocationProblems, or
+    an already-stacked AllocationProblem. ``starts`` overrides the generated
+    (B, S, n) start points. ``hot_loop="kernel"`` (the default) evaluates
+    eq. (1) with the CUDA kernel on the card; ``"ref"`` with the plain
+    PyTorch version. The step acceptance is chaotic in the last ulps, so the
+    two agree to solver tolerance, not bit for bit."""
+    use_kernel = _use_kernel(hot_loop)
+    dev = resolve_device(device)
+    batch = _as_batch(fleet, dev)
+    cfg = cfg or SolverConfig()
+    if starts is None:
+        starts = make_fleet_starts(batch, n_starts, seed)
+    starts = torch.as_tensor(starts, dtype=torch.float32, device=dev)
+    return _solve_fleet_impl(batch.problem, starts, cfg, use_kernel)
+
+
+def make_fleet_starts(batch: FleetBatch, n_starts: int,
+                      seed: int = 0) -> torch.Tensor:
+    """(B, S, n_max) start points, drawn PER TENANT at its true shape (so
+    the starts do not depend on the fleet's padding), zero-embedded, on the
+    batch's device."""
+    out = torch.zeros((batch.B, n_starts, batch.n_max), dtype=torch.float32,
+                      device=batch.problem.device)
+    for b in range(batch.B):
+        out[b, :, : int(batch.n_true[b])] = make_starts(
+            tenant_problem(batch, b), n_starts, seed)
+    return out
+
+
+def solve_fleet_step(
+    fleet: Union[FleetBatch, AllocationProblem],
+    x_current,
+    delta_max,
+    x_init=None,
+    steps: int = 600,
+    active: Optional[np.ndarray] = None,
+    hot_loop: str = "kernel",
+    device: DeviceLike = None,
+) -> FleetStepResult:
+    """One incremental-adoption tick for EVERY tenant at once: per lane, PGD
+    on the objective inside the L1 churn ball ``||x - x_current||_1 <=
+    delta_max`` (``repro_torch.core.incremental``), then greedy rounding.
+
+    ``x_current`` is the (B, n) previous-tick allocation (also the warm
+    start unless ``x_init`` is given); ``delta_max`` is scalar or (B,).
+    ``active`` is the (B,) ragged-horizon liveness mask (default: the
+    batch's own): frozen lanes come back with ``x == x_int == x_current``.
+    ``hot_loop`` chooses the kernel or the plain eq. (1), as in
+    :func:`solve_fleet`."""
+    use_kernel = _use_kernel(hot_loop)
+    dev = resolve_device(device)
+    if isinstance(fleet, FleetBatch):
+        if active is None:
+            active = fleet.active_mask
+        fleet = fleet.problem
+    prob = problem_to(fleet, dev)
+    B = prob.c.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_current = torch.as_tensor(x_current, **f32)
+    delta_max = torch.broadcast_to(torch.as_tensor(delta_max, **f32), (B,))
+    x_init = x_current if x_init is None else torch.as_tensor(x_init, **f32)
+    live = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
+            else torch.as_tensor(np.asarray(active, bool), device=dev))
+    x_rel, iters = solve_incremental_info(prob, x_current, delta_max,
+                                          x_init=x_init, steps=steps,
+                                          use_kernel=use_kernel)
+    x_int = round_and_polish(prob, x_rel, use_kernel=use_kernel)
+    # frozen lanes keep their warm start as the answer
+    x_rel = torch.where(live[:, None], x_rel, x_current)
+    x_int = torch.where(live[:, None], x_int, x_current)
+    return FleetStepResult(
+        x=x_rel, x_int=x_int,
+        fun_int=obj.objective(prob, x_int, use_kernel=use_kernel),
+        feasible=obj.is_feasible(prob, x_int, 1e-3),
+        iters=torch.where(live, iters, torch.zeros_like(iters)))

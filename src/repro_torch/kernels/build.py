@@ -1,0 +1,83 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root
+(listed in ``.gitignore``), then loaded with ``ctypes``. A library is named
+after a hash of its source and flags, so an edited source is rebuilt and an
+unchanged one is reused. ``nvcc``'s output, with ``-Xptxas=-v``'s register
+and spill counts, is kept beside each library as ``<name>.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from pathlib import Path
+from typing import Dict, Sequence
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+NVCC_TIMEOUT_S = 600
+
+
+def nvcc() -> str:
+    """The CUDA compiler: under PyTorch's CUDA_HOME, else on PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                           "are built on a machine with the CUDA toolkit")
+    return found
+
+
+def library_path(source: Path) -> Path:
+    """Where ``source``'s library lives: named by a hash of source + flags."""
+    digest = hashlib.sha256(Path(source).read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
+
+
+def build_libraries(sources: Sequence[Path]) -> Dict[Path, Path]:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all started together. Returns {source: library path}; raises with the
+    compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {Path(s): library_path(Path(s)) for s in sources}
+    todo = {s: lib for s, lib in out.items() if not lib.exists()}
+    procs = {}
+    for src, lib in todo.items():
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, lib)
+    failed = []
+    for src, (proc, tmp, lib) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+@lru_cache(maxsize=None)
+def load_library(source: Path) -> ctypes.CDLL:
+    """Build ``source`` if needed and load it (once per process)."""
+    return ctypes.CDLL(str(build_libraries([Path(source)])[Path(source)]))

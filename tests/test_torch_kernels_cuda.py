@@ -1,0 +1,106 @@
+"""The ``alloc_objective`` CUDA kernel against its plain PyTorch version, on
+the card. These tests import no JAX, so they also run where only the port
+is installed; without a CUDA device they skip. On a machine with a card:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import objective as obj  # noqa: E402
+from repro_torch.core.problem import AllocationProblem, PenaltyParams  # noqa: E402
+from repro_torch.fleet.batching import stack_problems  # noqa: E402
+from repro_torch.kernels.alloc_objective import ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+TOL = dict(rtol=1e-4, atol=1e-4)   # tests/kernels/test_kernels.py:32-33
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _problem(seed, m, n, p, device):
+    rng = np.random.default_rng(seed)
+    K = rng.uniform(0.2, 2.0, size=(m, n)).astype(np.float32)
+    c = (K.sum(axis=0) * rng.uniform(0.05, 0.2, size=n)).astype(np.float32)
+    E = np.zeros((p, n), np.float32)
+    E[rng.integers(0, p, size=n), np.arange(n)] = 1.0
+    d = rng.uniform(1.0, 4.0, size=m).astype(np.float32)
+    params = PenaltyParams.create(alpha=0.02, beta1=1.0, beta2=0.1,
+                                  beta3=10.0, gamma=0.005, device=device)
+    return AllocationProblem.create(K, E, c, d, params=params,
+                                    ub_default=100.0, device=device)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("B,T,m,n,p", [
+    (64, 4, 4, 2048, 2), (64, 48, 4, 2048, 2), (3, 5, 3, 37, 3),
+    (2, 1, 4, 1880, 2), (1, 300, 8, 513, 8)])
+def test_fleet_kernel_matches_plain(cuda, B, T, m, n, p):
+    batch = stack_problems([_problem(s, m, n, p, cuda) for s in range(B)])
+    P = batch.problem
+    gen = torch.Generator(device=cuda).manual_seed(B * T)
+    X = 5.0 * torch.rand((B, T, n), generator=gen, device=cuda)
+    args = (P.K, P.E, P.c, P.d, *P.params)
+    f, g = ops.fleet_value_and_grad(P, X)
+    fr, gr = ref.alloc_objective_fleet_ref(X, *args)
+    _close(f, fr)
+    _close(g, gr)
+    _close(ops.fleet_value(P, X), ref.alloc_objective_fleet_value(X, *args))
+
+
+@pytest.mark.parametrize("S,m,n,p", [(13, 4, 37, 2), (128, 4, 1880, 2),
+                                     (1, 2, 16, 2)])
+def test_single_kernel_matches_plain(cuda, S, m, n, p):
+    prob = _problem(S, m, n, p, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    X = 5.0 * torch.rand((S, n), generator=gen, device=cuda)
+    f, g = ops.batched_value_and_grad(prob, X)
+    fr, gr = ref.alloc_objective_ref(X, prob.K, prob.E, prob.c, prob.d,
+                                     *prob.params)
+    _close(f, fr)
+    _close(g, gr)
+
+
+def test_batched_equals_per_lane_bitwise(cuda):
+    """No atomics: a lane's result does not depend on its batch."""
+    batch = stack_problems([_problem(s, 4, 300, 2, cuda) for s in range(5)])
+    X = torch.rand((5, 7, 300), device=cuda)
+    f, g = ops.fleet_value_and_grad(batch.problem, X)
+    one = stack_problems([_problem(2, 4, 300, 2, cuda)])
+    f1, g1 = ops.fleet_value_and_grad(one.problem, X[2:3].contiguous())
+    assert torch.equal(f[2:3], f1) and torch.equal(g[2:3], g1)
+
+
+def test_core_objective_routes_cuda_tensors_to_the_kernel(cuda):
+    batch = stack_problems([_problem(s, 4, 64, 2, cuda) for s in range(3)])
+    X = torch.rand((3, 2, 64), device=cuda)
+    ops.reset_launches()
+    f = obj.objective(batch.problem, X)
+    g = obj.grad_objective(batch.problem, X)
+    assert ops.LAUNCHES["alloc_objective_fleet_value"] == 1
+    assert ops.LAUNCHES["alloc_objective_fleet"] == 1
+    _close(f, obj.objective(batch.problem, X, use_kernel=False))
+    _close(g, obj.grad_objective(batch.problem, X, use_kernel=False))
+
+
+def test_wrapper_rejects_bad_operands(cuda):
+    batch = stack_problems([_problem(0, 4, 64, 2, cuda)])
+    X = torch.rand((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        ops.fleet_value(batch.problem, X.double())
+    with pytest.raises(ValueError):
+        ops.fleet_value(batch.problem, X.transpose(1, 2).contiguous()
+                        .transpose(1, 2))
+    wide = stack_problems([_problem(0, 9, 64, 2, cuda)])
+    with pytest.raises(ValueError):
+        ops.fleet_value(wide.problem, X)

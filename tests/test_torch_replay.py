@@ -1,0 +1,119 @@
+"""The slice as a whole: the port's batched fleet replay against the JAX
+reference's, on the CPU, from the same starts."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# one intra-op thread: the operands are tiny, and the suite runs its files
+# in parallel workers, where extra threads only take cores from the others
+torch.set_num_threads(1)
+
+import repro.core as jcore  # noqa: E402
+import repro.fleet as jfleet  # noqa: E402
+import repro.fleet.replay as jreplay  # noqa: E402
+
+import repro_torch.core as tcore  # noqa: E402
+import repro_torch.fleet as tfleet  # noqa: E402
+import repro_torch.fleet.replay as treplay  # noqa: E402
+
+T = 3
+TENANTS = [("web", "diurnal", [8, 16, 4, 100.0], 1, 8.0),
+           ("launch", "flash_crowd", [4, 8, 2, 50.0], 2, 16.0),
+           ("adoption", "ramp", [6, 24, 3, 150.0], 3, 8.0)]
+TENANT_RTOL, FLEET_RTOL = 0.05, 2e-2   # tests/fleet/test_solve_fleet.py:113-117
+
+
+def _specs(TenantSpec, make_trace, ticks=T):
+    return [TenantSpec(name=name, trace=make_trace(kind, np.asarray(base),
+                                                   ticks, seed=seed),
+                       delta_max=dm)
+            for name, kind, base, seed, dm in TENANTS]
+
+
+def _replay_pair(monkeypatch, warm_start):
+    """Both packages replay the same fleet; the port's cold start is fed the
+    reference's starts (jax.random draws differ from torch.Generator's)."""
+    jcat = jcore.Catalog(jcore.make_cloud_catalog().instances[::40])
+    tcat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
+    starts = []
+
+    def capture(batch, n_starts, seed=0):
+        out = jfleet.make_fleet_starts(batch, n_starts, seed)
+        starts.append(np.array(out))
+        return out
+
+    monkeypatch.setattr(jreplay, "make_fleet_starts", capture)
+    ref = jfleet.replay_fleet(jcat, _specs(jfleet.TenantSpec,
+                                           jfleet.make_trace),
+                              replay_mode="batched", hot_loop="ref",
+                              run_ca_baseline=False, warm_start=warm_start)
+    fed = iter(starts)
+    monkeypatch.setattr(treplay, "make_fleet_starts",
+                        lambda batch, n_starts, seed=0:
+                        torch.as_tensor(next(fed)))
+    port = tfleet.replay_fleet(tcat, _specs(tfleet.TenantSpec,
+                                            tfleet.make_trace),
+                               replay_mode="batched", run_ca_baseline=False,
+                               warm_start=warm_start, device="cpu")
+    assert next(fed, None) is None
+    return ref, port
+
+
+@pytest.mark.parametrize("warm_start", ["counts", "relaxed"])
+def test_batched_replay_matches_reference(monkeypatch, warm_start):
+    ref, port = _replay_pair(monkeypatch, warm_start)
+    cost_r = np.asarray([t.metrics.cost_integral for t in ref.tenants])
+    cost_p = np.asarray([t.metrics.cost_integral for t in port.tenants])
+    np.testing.assert_allclose(cost_p, cost_r, rtol=TENANT_RTOL)
+    assert abs(cost_p.sum() - cost_r.sum()) / cost_r.sum() < FLEET_RTOL
+    slo_r = np.asarray([t.metrics.slo_violation_ticks for t in ref.tenants])
+    slo_p = np.asarray([t.metrics.slo_violation_ticks for t in port.tenants])
+    np.testing.assert_allclose(slo_p, slo_r, rtol=TENANT_RTOL)
+    # every committed allocation: the same feasibility, integral counts
+    for tr, tp in zip(ref.tenants, port.tenants):
+        assert len(tp.steps) == len(tr.steps) == T
+        assert ([s.metrics.satisfied for s in tp.steps]
+                == [s.metrics.satisfied for s in tr.steps])
+        assert [s.replanned for s in tp.steps] == [True] + [False] * (T - 1)
+        for s in tp.steps:
+            np.testing.assert_array_equal(s.counts, np.round(s.counts))
+    assert port.metrics.replay_mode == "batched"
+    assert port.metrics.health is None
+    assert "3 tenants, 3 ticks" in port.metrics.summary()
+
+
+def test_ragged_horizons_freeze_finished_tenants():
+    cat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
+    specs = _specs(tfleet.TenantSpec, tfleet.make_trace, ticks=3)
+    specs[1] = tfleet.TenantSpec(name="short", trace=specs[1].trace[:1])
+    out = tfleet.replay_fleet(cat, specs, replay_mode="batched",
+                              run_ca_baseline=False, device="cpu")
+    assert [len(t.steps) for t in out.tenants] == [3, 1, 3]
+    assert out.metrics.total_tenant_ticks == 7
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(replay_mode="sequential", run_ca_baseline=False),
+    dict(replay_mode="batched", controller="mpc", run_ca_baseline=False),
+    dict(replay_mode="batched"),                      # the CA baseline
+    dict(replay_mode="batched", run_ca_baseline=False,
+         capture_solver_trace=True),
+    dict(replay_mode="batched", run_ca_baseline=False, health=object()),
+    dict(replay_mode="batched", run_ca_baseline=False, anytime=object()),
+])
+def test_unported_options_raise(kwargs):
+    cat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfleet.replay_fleet(cat, _specs(tfleet.TenantSpec, tfleet.make_trace),
+                            device="cpu", **kwargs)
+
+
+def test_malformed_specs_and_fleets_raise():
+    with pytest.raises(ValueError):
+        tfleet.TenantSpec(name="bad", trace=np.ones(4))
+    with pytest.raises(ValueError):
+        tfleet.TenantSpec(name="bad", trace=np.ones((3, 5)))
+    cat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
+    with pytest.raises(ValueError):
+        tfleet.replay_fleet(cat, [], replay_mode="batched",
+                            run_ca_baseline=False, device="cpu")
