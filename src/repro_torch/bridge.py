@@ -6,6 +6,10 @@ packages can solve the identical problem. The dictionary holds the
 reference's ``AllocationProblem`` field names (``K``, ``E``, ``c``, ``d``,
 ``mu``, ``g``, ``lb``, ``ub``, ``mask``) and ``params``, a mapping of the
 ``PenaltyParams`` names (``alpha`` ... ``gamma``).
+
+A model's parameters cross the same way: ``model_params_from_reference``
+takes the reference's parameter values as numpy arrays and returns the
+port's per-layer parameters.
 """
 from __future__ import annotations
 
@@ -14,10 +18,12 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.problem import AllocationProblem, PenaltyParams
 from .core.terms import NOT_PORTED
 from .device import DeviceLike, resolve_device
 from .fleet.batching import FleetBatch
+from .models.transformer import torch_dtype
 
 LEAVES = ("K", "E", "c", "d", "mu", "g", "lb", "ub", "mask")
 
@@ -61,3 +67,29 @@ def fleet_batch_from_arrays(arrays: Mapping, n_true, m_true, p_true,
         m_true=np.asarray(m_true, np.int64),
         p_true=np.asarray(p_true, np.int64),
         active=None if active is None else np.asarray(active, bool))
+
+
+def model_params_from_reference(values: Mapping, cfg: ModelConfig,
+                                device: DeviceLike = None) -> dict:
+    """The port's model parameters from the reference's parameter values:
+    the output of ``split(init_model(cfg, key))[0]`` with every leaf as a
+    numpy array, whose ``groups`` leaves carry a leading ``n_groups`` axis.
+    Layer l takes slice l // period of block l % period's leaves; every leaf
+    is cast to cfg.param_dtype on ``device``."""
+    if "frontend_proj" in values:
+        raise NotImplementedError("the vision frontend is not ported yet")
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    put = lambda a: torch.tensor(np.asarray(a, np.float32),
+                                 device=dev).to(dtype)
+
+    def tree(node, index=None):
+        if isinstance(node, Mapping):
+            return {k: tree(v, index) for k, v in node.items()}
+        return put(node if index is None else np.asarray(node)[index])
+
+    out = {k: tree(values[k]) for k in ("embed", "final_norm", "unembed")
+           if k in values}
+    out["layers"] = [tree(values["groups"][i % cfg.period], i // cfg.period)
+                     for i in range(cfg.n_layers)]
+    return out

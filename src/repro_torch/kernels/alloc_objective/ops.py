@@ -21,6 +21,7 @@ import torch
 
 from ...core.problem import AllocationProblem
 from ..build import load_library
+from ..operands import check_operand
 from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "alloc_objective.cu"
@@ -44,20 +45,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"alloc_objective: {name} is on {t.device}, "
-                         f"expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"alloc_objective: {name} must be float32, "
-                        f"got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"alloc_objective: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"alloc_objective: {name} must be contiguous")
-
-
 def _launch(entry: str, X, K, E, c, d, scal, with_grad: bool):
     """Check every operand, allocate the outputs and launch on the current
     stream. X (B, T, n), K (B, m, n), E (B, p, n), c (B, n), d (B, m),
@@ -73,7 +60,8 @@ def _launch(entry: str, X, K, E, c, d, scal, with_grad: bool):
     for name, t, shape in (("X", X, (B, T, n)), ("K", K, (B, m, n)),
                            ("E", E, (B, p, n)), ("c", c, (B, n)),
                            ("d", d, (B, m)), ("scalars", scal, (B, 8))):
-        _check(name, t, shape, dev)
+        check_operand("alloc_objective", name, t, shape, torch.float32, dev,
+                      align=4)
     f = torch.empty((B, T), dtype=torch.float32, device=dev)
     g = (torch.empty((B, T, n), dtype=torch.float32, device=dev)
          if with_grad else None)
@@ -105,6 +93,17 @@ def _fleet_scalars(prob: AllocationProblem) -> torch.Tensor:
     zeros = torch.zeros_like(p_pad)
     return torch.stack([P.alpha, P.beta1, P.beta2, P.beta3, P.gamma,
                         p_pad, zeros, zeros], dim=1).contiguous()
+
+
+def _single_scalars(prob: AllocationProblem) -> torch.Tensor:
+    """(1, 8) = [alpha, beta1, beta2, beta3, gamma, p, 0, 0] of ONE
+    problem."""
+    P = prob.params
+    dev = prob.c.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.stack([P.alpha, P.beta1, P.beta2, P.beta3, P.gamma,
+                        torch.full((), float(prob.p), dtype=torch.float32,
+                                   device=dev), zero, zero])[None]
 
 
 def _params(prob: AllocationProblem):
@@ -139,11 +138,7 @@ def batched_value_and_grad(prob: AllocationProblem, X: torch.Tensor):
     if not X.is_cuda:
         return ref.alloc_objective_ref(X, prob.K, prob.E, prob.c, prob.d,
                                        *_params(prob))
-    P = prob.params
-    zero = torch.zeros((), dtype=torch.float32, device=X.device)
-    scal = torch.stack([P.alpha, P.beta1, P.beta2, P.beta3, P.gamma,
-                        torch.full((), float(prob.p), dtype=torch.float32,
-                                   device=X.device), zero, zero])[None]
     f, g = _launch("alloc_objective", X[None], prob.K[None], prob.E[None],
-                   prob.c[None], prob.d[None], scal, with_grad=True)
+                   prob.c[None], prob.d[None], _single_scalars(prob),
+                   with_grad=True)
     return f[0], g[0]

@@ -1,0 +1,36 @@
+"""Serving step functions — port of ``make_prefill_step`` and
+``make_decode_step`` of ``repro.launch.steps``.
+
+Where the reference jits each step with explicit shardings, these run
+eagerly under ``torch.inference_mode()`` (no autograd records; the caches
+are inference tensors, written in place). ``make_train_step`` waits for the
+training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import decode_step as model_decode_step
+from ..models import prefill as model_prefill
+
+
+def make_prefill_step(cfg: ModelConfig, s_max: int,
+                      use_kernel: Optional[bool] = None):
+    def prefill_step(params, batch):
+        with torch.inference_mode():
+            return model_prefill(cfg, params, batch, s_max=s_max,
+                                 use_kernel=use_kernel)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, use_kernel: Optional[bool] = None):
+    def serve_step(params, caches, tokens, pos):
+        with torch.inference_mode():
+            return model_decode_step(cfg, params, caches, tokens, pos,
+                                     use_kernel=use_kernel)
+
+    return serve_step
