@@ -6,10 +6,10 @@
 Phases, one JSON object per line:
 
 1. setup   — torch and CUDA versions, the card's name and power limit.
-2. build   — compiles the three CUDA kernel sources of the checkout
-             (alloc_objective, flash_attention, decode_attention) with nvcc
-             into build/repro_torch_kernels/, one nvcc each, all started
-             together, and times it.
+2. build   — compiles the four CUDA kernel sources of the checkout
+             (alloc_objective, flash_attention, decode_attention,
+             rwkv6_scan) with nvcc into build/repro_torch_kernels/, one
+             nvcc each, all started together, and times it.
 3. kernels — every alloc_objective entry (fleet value+gradient, fleet
              value-only, single-problem) on the card at the shapes the
              replay gives it, against its plain PyTorch version on the same
@@ -59,6 +59,35 @@ Phases, one JSON object per line:
              kernels of one decode step and of one prefill (torch.profiler,
              each window opened by a primer of spin kernels that the sums
              leave out).
+8. rwkv    — the rwkv6_scan kernel on the card against its plain PyTorch
+             version (the chunked closed form, on the float32 values of the
+             same inputs; rtol = atol = 1e-3 in float32, 2e-2 in bfloat16),
+             every case with a nonzero bonus u and state s0: rwkv6-7b's
+             prefill shape (timed for the kernels line), its decode shape
+             (S = 1, chunk 1), a ragged S = 1056, decays in [0.02, 0.5]
+             (the clamp at e^-60 bites), head size 16 with chunk 16, and
+             bfloat16; kernel and plain device ms over rotating input
+             copies, and the bound. PyTorch has no one call that computes
+             WKV, so there is no library time.
+9. serve_rwkv — the third main path: rwkv6-7b at full width and depth (32
+             layers, d_model 4096, float32, random weights from --seed,
+             with u drawn from N(0, 0.5) and w_base spread over [-6, -1]
+             across channels) through the same step functions and prompts
+             as phase 7, after phase 7's weights are freed: one rwkv6_scan
+             launch per layer per prefill and per decode step, no other
+             kernel. The random model moves its own logits past 2e-3
+             under float32-sized perturbations, so end to end the logits
+             are held to a measured yardstick: the plain path run three
+             more times with the embedding table perturbed by 1e-7 of
+             itself; the kernel path's logits must lie no farther from the
+             plain path's and from forward's than the farthest of those,
+             and each greedy token must be their argmax but at a near tie
+             (within twice the largest perturbed difference). And per
+             layer, through the model's on_layer hook: the prefill, every
+             decode step and forward over prompt + generated tokens run
+             again, each time-mix block also run plain on the same input
+             and cache; output and new state must agree at rtol = atol =
+             2e-3.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -85,7 +114,11 @@ TENANT_RTOL, FLEET_RTOL = 0.05, 2e-2   # tests/fleet/test_solve_fleet.py:113-117
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # served logits vs plain path and forward (tests/models/test_model_parts.py:40)
 SERVE_TOL = 2e-3
+NOISE_SEEDS = 3               # perturbed plain runs: rwkv6-7b's yardstick
+# kernel vs plain (tests/kernels/test_kernels.py:138-139); bf16 outputs round
+RWKV_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 SERVE_ARCH = "qwen1.5-4b"
+RWKV_ARCH = "rwkv6-7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
 REPLACES = {
     "alloc_objective_fleet": "src/repro/kernels/alloc_objective/kernel.py:136",
@@ -94,6 +127,8 @@ REPLACES = {
     "alloc_objective": "src/repro/kernels/alloc_objective/kernel.py:102",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:82",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:56",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:73",
+    "rwkv6_scan_decode": "src/repro/kernels/rwkv6_scan/kernel.py:73",
 }
 # (B, S, H, G, dh, window, dtype): qwen1.5-4b's prefill shape first (timed
 # for the kernels line), then GQA with nemotron-4-15b's heads, a sliding
@@ -116,6 +151,17 @@ DECODE_CASES = {
     "window-256": (8, 1056, 20, 20, 128, "band:256", "float32"),
     "gqa-48/8": (8, 1056, 48, 8, 128, "last", "float32"),
     "bf16": (8, 1056, 20, 20, 128, "last", "bfloat16"),
+}
+# (B, S, H, hs, chunk, (w_lo, w_hi), dtype): rwkv6-7b's prefill and decode
+# shapes first (timed for the kernels line), then a ragged S, decays strong
+# enough that the clamp bites, head size 16 and bfloat16
+RWKV_CASES = {
+    "rwkv-prefill": (8, 1024, 64, 64, 64, (0.7, 0.999), "float32"),
+    "rwkv-decode": (8, 1, 64, 64, 1, (0.7, 0.999), "float32"),
+    "ragged-1056": (8, 1056, 64, 64, 64, (0.7, 0.999), "float32"),
+    "clamp": (8, 1024, 64, 64, 64, (0.02, 0.5), "float32"),
+    "hs16-chunk16": (8, 1024, 256, 16, 16, (0.7, 0.999), "float32"),
+    "bf16": (8, 1024, 64, 64, 64, (0.7, 0.999), "bfloat16"),
 }
 # base demands of examples/fleet_replay.py's four tenants, by trace kind
 BASES = {"diurnal": [8, 16, 4, 100.0], "flash_crowd": [4, 8, 2, 50.0],
@@ -258,15 +304,23 @@ def kernel_bound(B, T, n, m, p, with_grad):
             "bytes" if t_bytes >= t_ops else "operations", 4 * elems, flops)
 
 
-def compare(name, got, want, rtol=RTOL, atol=ATOL):
-    import torch
+def disagreement(name, got, want, rtol, atol) -> dict:
+    """The largest difference of ``got`` from ``want`` and the largest
+    difference over its tolerance (atol + rtol |want|)."""
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)}, expected "
                              f"{tuple(want.shape)}")
     err = (got - want).abs()
-    over = (err / (atol + rtol * want.abs())).max().item()
-    rec = {"max_abs_err": err.max().item(), "max_err_over_tol": over}
-    if not over <= 1.0:
+    return {"max_abs_err": err.max().item(),
+            "max_err_over_tol": (err / (atol + rtol * want.abs())).max().item()}
+
+
+def compare(name, got, want, rtol=RTOL, atol=ATOL):
+    """disagreement(), raised on when it is over the tolerance or ``got`` is
+    not finite."""
+    import torch
+    rec = disagreement(name, got, want, rtol, atol)
+    if not rec["max_err_over_tol"] <= 1.0:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: {rec}")
     if not bool(torch.isfinite(got).all()):
@@ -409,31 +463,256 @@ def attention_checks(seed: int, dev):
     return checks, measured
 
 
-def serve(seed: int, dev):
-    """The second main path: qwen1.5-4b at full width and depth, prefill and
+def rwkv_bound(B, S, H, hs, chunk, itemsize, flops_per_s) -> dict:
+    """r, k, v, w read and y written once, u, s0 read and s_final written
+    once; per (b, h) and chunk of c real positions: 4 hs operations per
+    strictly lower (t, i) pair (the decayed r.k and att.v), 4 hs^2 + 4 hs
+    per position (r S_0, the state update, the bonus) and hs^2 (the decay of
+    S_0)."""
+    full, tail = divmod(S, chunk)
+    per = lambda c: 2 * hs * c * (c - 1) + 4 * c * hs * (hs + 1) + hs * hs
+    flops = B * H * (full * per(chunk) + (per(tail) if tail else 0))
+    nbytes = itemsize * 5 * B * S * H * hs + 4 * (H * hs + 2 * B * H * hs * hs)
+    return bound(nbytes, flops, flops_per_s)
+
+
+def rwkv_checks(seed: int, dev):
+    """The rwkv6_scan kernel against its plain version at RWKV_CASES, timed
+    beside it over rotating input copies. Returns (checks, {kernels-line
+    name: the record of its serving shape})."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import ops as sops
+    from repro_torch.kernels.rwkv6_scan import ref as sref
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    rate = {"float32": F32_FLOPS_PER_S, "bfloat16": BF16_FLOPS_PER_S}
+    measured_as = {"rwkv-prefill": "rwkv6_scan",
+                   "rwkv-decode": "rwkv6_scan_decode"}
+    checks, measured = [], {}
+    for case, (B, S, H, hs, chunk, (lo, hi), dtype) in RWKV_CASES.items():
+        dt = getattr(torch, dtype)
+        est = rwkv_bound(B, S, H, hs, chunk, dt.itemsize, rate[dtype])
+
+        def inputs():
+            rand = lambda *shape: torch.randn(shape, generator=gen,
+                                              device=dev)
+            w = lo + (hi - lo) * torch.rand((B, S, H, hs), generator=gen,
+                                            device=dev)
+            return (rand(B, S, H, hs).to(dt), rand(B, S, H, hs).to(dt),
+                    rand(B, S, H, hs).to(dt), w.to(dt),
+                    0.5 * rand(H, hs), 0.5 * rand(B, H, hs, hs))
+
+        sets = [inputs() for _ in range(copies_for(est["bytes"]))]
+        r, k, v, w, u, s0 = sets[0]
+        y, sf = sops.rwkv6_scan(r, k, v, w, u, s0, chunk)
+        yr, sr = sref.rwkv6_scan_chunked(r.float(), k.float(), v.float(),
+                                         w.float(), u, s0, chunk)
+        rec = compare(f"rwkv6_scan {case}",
+                      torch.cat([y.float().flatten(), sf.flatten()]),
+                      torch.cat([yr.flatten(), sr.flatten()]),
+                      RWKV_TOL[dtype], RWKV_TOL[dtype])
+        if case == "rwkv-prefill":
+            # the kernel, the plain version and the plain version in
+            # chunks of 32 (the same function, rounded otherwise) against
+            # the chunked form in float64, and the kernel and chunks of 32
+            # against the plain version: rms of the difference over the rms
+            # of y
+            y64, _ = sref.rwkv6_scan_chunked(
+                *(t.double() for t in (r, k, v, w, u, s0)), chunk,
+                compute_dtype=torch.float64)
+            y32, _ = sref.rwkv6_scan_chunked(r.float(), k.float(), v.float(),
+                                             w.float(), u, s0, 32)
+            rms = lambda t: t.double().pow(2).mean().sqrt().item()
+            rec["vs_float64"] = {"kernel": rms(y - y64) / rms(y64),
+                                 "plain": rms(yr - y64) / rms(y64),
+                                 "plain_chunk32": rms(y32 - y64) / rms(y64)}
+            rec["vs_plain_rms"] = {"kernel": rms(y - yr) / rms(y64),
+                                   "plain_chunk32": rms(y32 - yr) / rms(y64)}
+            del y64, y32
+        kern_in, plain_in = rotation(sets), rotation(sets)
+        kern = lambda: sops.rwkv6_scan(*kern_in(), chunk)
+        plain = lambda: sref.rwkv6_scan_chunked(
+            *(t.float() for t in plain_in()), chunk)
+        rec.update(name="rwkv6_scan", case=case, dtype=dtype,
+                   shape={"B": B, "S": S, "H": H, "hs": hs, "chunk": chunk,
+                          "w": [lo, hi]}, input_copies=len(sets),
+                   **timings(kern, plain), library_ms=None, **est)
+        checks.append(rec)
+        if case in measured_as:
+            measured[measured_as[case]] = rec
+        del sets, r, k, v, w, u, s0, y, sf, yr, sr, kern_in, plain_in
+    return checks, measured
+
+
+def _rwkv_weights(params, gen) -> None:
+    """u drawn from N(0, 0.5) and w_base spread evenly over [-6, -1] across
+    channels, RWKV-6's own time-decay range: the reference's init (u = 0,
+    w_base = -6) leaves the bonus unexercised and every decay at 0.9975."""
+    import torch
+    for layer in params["layers"]:
+        mix = layer["mix"]
+        mix["u"].normal_(0.0, 0.5, generator=gen)
+        mix["w_base"].copy_(torch.linspace(-6.0, -1.0, mix["w_base"].numel()))
+
+
+def float64_scan(run):
+    """``run()`` with the RWKV model's WKV scan evaluated in float64 (the
+    chunked form, rounded to float32 after): the plain path made more exact
+    at the one place where the kernel path differs from it."""
+    import torch
+    import repro_torch.models.rwkv as rwkv_mod
+    from repro_torch.kernels.rwkv6_scan import ref as sref
+
+    def scan(r, k, v, w, u, s0, chunk, use_kernel=None):
+        y, s_final = sref.rwkv6_scan_chunked(
+            *(t.double() for t in (r, k, v, w, u, s0)), chunk,
+            compute_dtype=torch.float64)
+        return y.float(), s_final.float()
+
+    kept, rwkv_mod.rwkv6_scan = rwkv_mod.rwkv6_scan, scan
+    try:
+        return run()
+    finally:
+        rwkv_mod.rwkv6_scan = kept
+
+
+def rwkv_end_to_end(plain_run, params, cfg, gen, kern, plain, fwd, toks,
+                    phase) -> dict:
+    """rwkv6-7b's logits end to end, held to a measured yardstick. A random
+    rwkv6-7b moves its own logits past SERVE_TOL under perturbations of
+    float32 rounding's size, so SERVE_TOL cannot separate a right path from
+    a wrong one there. Instead the plain path runs again NOISE_SEEDS times,
+    each with the embedding table perturbed by 1e-7 of itself (a fresh
+    draw each time), and:
+
+    - the kernel path's logits must lie no farther (max_err_over_tol at
+      SERVE_TOL) from the plain path's, and from forward's, than the
+      farthest of these perturbed runs lies from the plain path;
+    - every greedy token must be the argmax of the plain path's and of
+      forward's logits, except at a near tie: where the token's logit lies
+      within twice the largest perturbed difference of the top one.
+
+    The same two rules hold the kernel path to the plain path with the WKV
+    scan evaluated in float64 (``float64_scan``), whose own distance from
+    the plain path is reported beside it, as is the plain path's with the
+    scan in chunks of 32 (the same function, rounded otherwise). Each
+    difference also gives its max_err_over_tol at each step (the prefill,
+    then the decode steps)."""
+    import torch
+
+    def dis(name, got, want):
+        rec = disagreement(name, got, want, SERVE_TOL, SERVE_TOL)
+        over = (got - want).abs() / (SERVE_TOL + SERVE_TOL * want.abs())
+        rec["over_tol_by_step"] = over.flatten(1).max(1).values.tolist()
+        return rec
+
+    table = params["embed"]["table"]
+    floors = []
+    for _ in range(NOISE_SEEDS):
+        noise = torch.randn(table.shape, generator=gen, device=table.device)
+        perturbed = {**params, "embed": {"table": table * (1 + 1e-7 * noise)}}
+        del noise
+        floors.append(dis("plain path, perturbed", plain_run(perturbed),
+                          plain))
+        del perturbed
+    limit = max(f["max_err_over_tol"] for f in floors)
+    tie = 2 * max(f["max_abs_err"] for f in floors)
+    rec = {"noise_floors": floors, "limit_over_tol": limit,
+           "near_tie_abs": tie,
+           "witness_chunk32": dis("plain path, chunk 32", plain_run(
+               params, cfg.scaled(scan_chunk=32)), plain)}
+    exact = float64_scan(lambda: plain_run(params))
+    rec["plain_vs_float64_scan"] = dis("plain path vs float64 scan", plain,
+                                       exact)
+    chosen = torch.stack(toks)                      # (steps + 1, B, 1)
+    for name, want in (("plain", plain), ("forward", fwd),
+                       ("float64_scan", exact)):
+        got = dis(f"{phase} vs {name}", kern, want)
+        top = want.max(-1).values
+        at = want.gather(-1, chosen)[..., 0]
+        got.update(tokens=int(top.numel()),
+                   tokens_argmax=int((want.argmax(-1) == chosen[..., 0]
+                                      ).sum()),
+                   tokens_within_tie=int((top - at <= tie).sum()))
+        rec[f"vs_{name}"] = got
+        if not (got["max_err_over_tol"] <= limit
+                and got["tokens_within_tie"] == got["tokens"]):
+            raise AssertionError(f"{phase}: the kernel path's logits lie "
+                                 f"outside the plain path's noise: {got}, "
+                                 f"limit {limit}, near tie {tie}")
+    return rec
+
+
+def rwkv_layerwise(cfg, params, prompts, toks, s_max) -> dict:
+    """Every time-mix block of the RWKV serving run held to its plain
+    version on the same input, at full width and depth, through the model's
+    own layer loop (its ``on_layer`` hook): the prefill, each greedy decode
+    step and forward over prompt + generated tokens (a ragged last chunk)
+    run again along the kernel path, and at each layer the block runs again
+    with use_kernel=False on the same input and cache; its output and its
+    new state must agree at SERVE_TOL. Returns the largest disagreement."""
+    import torch
+    from repro_torch.models import decode_step, forward, prefill
+
+    worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0, "layer_calls": 0}
+    where = ["prefill"]
+
+    def check(i, y, cache, rerun):
+        y_plain, cache_plain = rerun(False)
+        for what, got, want in (("output", y, y_plain),
+                                ("state", cache.wkv, cache_plain.wkv)):
+            rec = compare(f"serve_rwkv {where[0]} layer {i} {what}", got,
+                          want, SERVE_TOL, SERVE_TOL)
+            for key in ("max_abs_err", "max_err_over_tol"):
+                worst[key] = max(worst[key], rec[key])
+        worst["layer_calls"] += 1
+
+    with torch.inference_mode():
+        S = prompts.shape[1]
+        _, caches = prefill(cfg, params, {"tokens": prompts}, s_max,
+                            on_layer=check)
+        for i, tok in enumerate(toks[:-1]):
+            where[0] = f"decode {i}"
+            _, caches = decode_step(cfg, params, caches, tok, S + i,
+                                    on_layer=check)
+        where[0] = "forward"
+        forward(cfg, params, {"tokens": torch.cat([prompts] + toks[:-1],
+                                                  dim=1)}, on_layer=check)
+    return worst
+
+
+def serve(seed: int, dev, arch: str, phase: str):
+    """A serving main path: ``arch`` at full width and depth, prefill and
     greedy decode through the step functions, then the plain-path and
-    teacher-forcing checks. Returns (record, launches of the main path)."""
+    teacher-forcing checks. Returns (record, launches of the prefill,
+    launches of the decode steps)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.alloc_objective import ops as aops
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6_scan import ops as sops
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import forward, init_model
 
+    kernel_ops = (aops, fops, dops, sops)
+
     def counts():
-        return {**aops.LAUNCHES, **fops.LAUNCHES, **dops.LAUNCHES}
+        return {k: n for ops in kernel_ops for k, n in ops.LAUNCHES.items()}
 
     def reset():
-        for ops in (aops, fops, dops):
+        for ops in kernel_ops:
             ops.reset_launches()
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    rwkv = cfg.blocks_in_group[0][0] == "rwkv"
     B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
     s_max = S + steps
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     params = init_model(cfg, gen, device=dev)
+    if rwkv:
+        _rwkv_weights(params, gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
@@ -452,6 +731,7 @@ def serve(seed: int, dev):
     logits, caches = prefill(params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_launches = counts()
     step_logits = [logits]
     toks = [logits.argmax(-1, keepdim=True)]
     t0 = time.perf_counter()
@@ -462,19 +742,28 @@ def serve(seed: int, dev):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = counts()
+    decode_launches = {k: n - prefill_launches[k] for k, n in launches.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * steps}
-    if any(launches[k] != n for k, n in want.items()) or any(
-            launches[k] for k in aops.LAUNCHES):
-        raise AssertionError(f"serve launches {launches}, expected {want}")
+    L = cfg.n_layers
+    if rwkv:
+        want_prefill, want_decode = {"rwkv6_scan": L}, {"rwkv6_scan": L * steps}
+    else:
+        want_prefill = {"flash_attention": L}
+        want_decode = {"decode_attention": L * steps}
+    for got, want in ((prefill_launches, want_prefill),
+                      (decode_launches, want_decode)):
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"{phase} launches {got}, expected {want} "
+                                 f"and no other kernel")
     kern_logits = torch.stack(step_logits)            # (steps + 1, B, V)
     if not (kern_logits.shape == (steps + 1, B, cfg.vocab_size)
             and bool(torch.isfinite(kern_logits).all())):
-        raise AssertionError("serve: logits of the wrong shape or not finite")
+        raise AssertionError(f"{phase}: logits of the wrong shape or not "
+                             f"finite")
 
-    # one decode step under the profiler: the last step again (same token,
-    # same slot, so the cache is unchanged); then one more prefill
+    # one decode step under the profiler: the last step again (an attention
+    # step writes the same token to the same slot; an RWKV step advances its
+    # state once more, which nothing reads after); then one more prefill
     step_prof = profile_once(
         lambda: decode(params, caches, toks[steps - 1], S + steps - 1))
     # the same device time over a step's time without the profiler (its
@@ -488,28 +777,40 @@ def serve(seed: int, dev):
     del caches
 
     # (a) the plain path on the card, teacher-forced with the kernel's tokens
+    def plain_run(run_params, run_cfg=cfg):
+        plain_prefill = make_prefill_step(run_cfg, s_max=s_max,
+                                          use_kernel=False)
+        plain_decode = make_decode_step(run_cfg, use_kernel=False)
+        logits, caches = plain_prefill(run_params, {"tokens": prompts})
+        out = [logits]
+        for i in range(steps):
+            logits, caches = plain_decode(run_params, caches, toks[i], S + i)
+            out.append(logits)
+        return torch.stack(out)
+
     reset()
-    plain_prefill = make_prefill_step(cfg, s_max=s_max, use_kernel=False)
-    plain_decode = make_decode_step(cfg, use_kernel=False)
-    logits, caches = plain_prefill(params, {"tokens": prompts})
-    plain_logits = [logits]
-    for i in range(steps):
-        logits, caches = plain_decode(params, caches, toks[i], S + i)
-        plain_logits.append(logits)
+    plain_logits = plain_run(params)
     if any(counts().values()):
         raise AssertionError(f"the plain path launched kernels: {counts()}")
-    del caches
-    vs_plain = compare("serve vs plain path", kern_logits,
-                       torch.stack(plain_logits), SERVE_TOL, SERVE_TOL)
     # (b) teacher forcing: forward over prompt + generated tokens
     seq = torch.cat([prompts] + toks[:steps], dim=1)
     with torch.inference_mode():
         full, _ = forward(cfg, params, {"tokens": seq})
-    vs_forward = compare("serve vs forward", kern_logits,
-                         full[:, S - 1:].transpose(0, 1), SERVE_TOL,
-                         SERVE_TOL)
+    forward_logits = full[:, S - 1:].transpose(0, 1)
     del full
-    rec = {"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+    if rwkv:
+        checks = rwkv_end_to_end(plain_run, params, cfg, gen, kern_logits,
+                                 plain_logits, forward_logits, toks, phase)
+        checks["layerwise"] = rwkv_layerwise(cfg, params, prompts, toks,
+                                             s_max)
+    else:
+        checks = {
+            "vs_plain": compare(f"{phase} vs plain path", kern_logits,
+                                plain_logits, SERVE_TOL, SERVE_TOL),
+            "vs_forward": compare(f"{phase} vs forward", kern_logits,
+                                  forward_logits, SERVE_TOL, SERVE_TOL)}
+    del forward_logits
+    rec = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": cfg.dtype,
            "params": sum(t.numel() for t in _leaves(params)),
            "B": B, "prompt": S, "steps": steps, "s_max": s_max,
@@ -518,13 +819,14 @@ def serve(seed: int, dev):
            "decode_ms_per_token": decode_s / steps * 1e3,
            "decode_tokens_per_s": B * steps / decode_s,
            "peak_memory_gib": peak / 2 ** 30, "launches": launches,
-           "vs_plain": vs_plain, "vs_forward": vs_forward,
-           "tol": SERVE_TOL,
+           "prefill_launches": prefill_launches,
+           "decode_launches": decode_launches,
+           **checks, "tol": SERVE_TOL,
            "argmax_equal_plain": bool(torch.equal(
-               kern_logits.argmax(-1), torch.stack(plain_logits).argmax(-1))),
+               kern_logits.argmax(-1), plain_logits.argmax(-1))),
            "decode_step_profile": step_prof,
            "prefill_profile": prefill_prof}
-    return rec, launches
+    return rec, prefill_launches, decode_launches
 
 
 def _leaves(tree):
@@ -561,8 +863,9 @@ def main() -> int:
     from repro_torch.kernels.build import build_libraries
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6_scan import ops as sops
     sources = {"alloc_objective": ops.SOURCE, "flash_attention": fops.SOURCE,
-               "decode_attention": dops.SOURCE}
+               "decode_attention": dops.SOURCE, "rwkv6_scan": sops.SOURCE}
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -700,18 +1003,16 @@ def main() -> int:
 
     def run(hot_loop):
         solve_log.clear()
-        ops.reset_launches()
-        fops.reset_launches()
-        dops.reset_launches()
+        for kernel_ops in (ops, fops, dops, sops):
+            kernel_ops.reset_launches()
         torch.cuda.synchronize()
         s0 = time.perf_counter()
         out = replay_fleet(catalog, tenants, replay_mode="batched",
                            run_ca_baseline=False, hot_loop=hot_loop)
         torch.cuda.synchronize()
         wall = time.perf_counter() - s0
-        if fops.LAUNCHES["flash_attention"] or dops.LAUNCHES[
-                "decode_attention"]:
-            raise AssertionError("the replay launched attention kernels")
+        if any({**fops.LAUNCHES, **dops.LAUNCHES, **sops.LAUNCHES}.values()):
+            raise AssertionError("the replay launched a model's kernels")
         return out, wall, dict(ops.LAUNCHES), list(solve_log)
 
     def summary(out, wall, launches, solves):
@@ -783,9 +1084,27 @@ def main() -> int:
 
     # ---- serve: the second main path -------------------------------------
     t0 = time.perf_counter()
-    serve_rec, serve_launches = serve(args.seed, dev)
+    serve_rec, qwen_prefill, qwen_decode = serve(args.seed, dev, SERVE_ARCH,
+                                                 "serve")
     serve_rec["seconds"] = time.perf_counter() - t0
     emit(serve_rec)
+    torch.cuda.empty_cache()   # qwen1.5-4b's weights are gone with serve()
+
+    # ---- the WKV scan kernel -----------------------------------------------
+    t0 = time.perf_counter()
+    rwkv_rec, rwkv_measured = rwkv_checks(args.seed, dev)
+    emit({"phase": "rwkv", "seconds": time.perf_counter() - t0,
+          "tol": RWKV_TOL, "library": None,
+          "library_note": "PyTorch has no one call that computes WKV",
+          "checks": rwkv_rec})
+    torch.cuda.empty_cache()
+
+    # ---- serve_rwkv: the third main path ---------------------------------
+    t0 = time.perf_counter()
+    rwkv_serve_rec, rwkv_prefill, rwkv_decode = serve(args.seed, dev,
+                                                      RWKV_ARCH, "serve_rwkv")
+    rwkv_serve_rec["seconds"] = time.perf_counter() - t0
+    emit(rwkv_serve_rec)
 
     # ---- the closing lines ---------------------------------------------
     kernels = []
@@ -802,14 +1121,24 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None})
-    for name, rec in attn_measured.items():
+    root = Path(__file__).resolve().parent
+    # (name, the record of its timed shape, its kernel, its launches on the
+    # main path)
+    model_kernels = [
+        ("flash_attention", attn_measured["flash_attention"],
+         "flash_attention", qwen_prefill["flash_attention"]),
+        ("decode_attention", attn_measured["decode_attention"],
+         "decode_attention", qwen_decode["decode_attention"]),
+        ("rwkv6_scan", rwkv_measured["rwkv6_scan"], "rwkv6_scan",
+         rwkv_prefill["rwkv6_scan"]),
+        ("rwkv6_scan_decode", rwkv_measured["rwkv6_scan_decode"],
+         "rwkv6_scan", rwkv_decode["rwkv6_scan"])]
+    for name, rec, kernel, launches in model_kernels:
         kernels.append({
             "name": name, "route": "cuda",
-            "source": str(sources[name].relative_to(Path(__file__).resolve()
-                                                    .parent)),
-            "replaces": REPLACES[name], "launches": serve_launches[name],
-            "max_abs_err": max(c["max_abs_err"] for c in attn_checks
-                               if c["name"] == name),
+            "source": str(sources[kernel].relative_to(root)),
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})

@@ -23,7 +23,7 @@ from .core.problem import AllocationProblem, PenaltyParams
 from .core.terms import NOT_PORTED
 from .device import DeviceLike, resolve_device
 from .fleet.batching import FleetBatch
-from .models.transformer import torch_dtype
+from .models.transformer import init_model
 
 LEAVES = ("K", "E", "c", "d", "mu", "g", "lb", "ub", "mask")
 
@@ -74,22 +74,24 @@ def model_params_from_reference(values: Mapping, cfg: ModelConfig,
     """The port's model parameters from the reference's parameter values:
     the output of ``split(init_model(cfg, key))[0]`` with every leaf as a
     numpy array, whose ``groups`` leaves carry a leading ``n_groups`` axis.
-    Layer l takes slice l // period of block l % period's leaves; every leaf
-    is cast to cfg.param_dtype on ``device``."""
-    if "frontend_proj" in values:
-        raise NotImplementedError("the vision frontend is not ported yet")
+    Layer l takes slice l // period of block l % period's leaves, for any
+    block the port runs (an attention block and its FFN, an RWKV time mix
+    and its channel mix). Every leaf takes the type that the port's
+    ``init_model`` gives it (cfg.param_dtype, or float32 for the RWKV
+    constants), on ``device``. A model the port does not run raises."""
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.param_dtype)
-    put = lambda a: torch.tensor(np.asarray(a, np.float32),
-                                 device=dev).to(dtype)
+    # the port's own tree, shapes and types only
+    like = init_model(cfg, torch.Generator(), device="meta")
 
-    def tree(node, index=None):
+    def tree(node, like, index=None):
         if isinstance(node, Mapping):
-            return {k: tree(v, index) for k, v in node.items()}
-        return put(node if index is None else np.asarray(node)[index])
+            return {k: tree(v, like[k], index) for k, v in node.items()}
+        a = np.asarray(node if index is None else np.asarray(node)[index],
+                       np.float32)
+        return torch.tensor(a, device=dev).to(like.dtype)
 
-    out = {k: tree(values[k]) for k in ("embed", "final_norm", "unembed")
-           if k in values}
-    out["layers"] = [tree(values["groups"][i % cfg.period], i // cfg.period)
-                     for i in range(cfg.n_layers)]
+    out = {k: tree(values[k], like[k])
+           for k in ("embed", "final_norm", "unembed") if k in values}
+    out["layers"] = [tree(values["groups"][i % cfg.period], like["layers"][i],
+                          i // cfg.period) for i in range(cfg.n_layers)]
     return out

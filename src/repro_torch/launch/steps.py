@@ -3,8 +3,10 @@
 
 Where the reference jits each step with explicit shardings, these run
 eagerly under ``torch.inference_mode()`` (no autograd records; the caches
-are inference tensors, written in place). ``make_train_step`` waits for the
-training slice.
+are inference tensors). They serve every model ``repro_torch.models``
+runs: an attention model's KV caches are written in place, an RWKV model's
+state caches are replaced in the list the step returns. ``make_train_step``
+waits for the training slice.
 """
 from __future__ import annotations
 

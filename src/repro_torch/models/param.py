@@ -43,3 +43,10 @@ def zeros_init(shape: Sequence[int], dtype: torch.dtype,
 def ones_init(shape: Sequence[int], dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=dtype, device=device)
+
+
+def const_init(fill: float, shape: Sequence[int], device: torch.device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A constant parameter (the reference's ``const_init`` of a filled
+    array): float32 unless asked, whatever the model's ``param_dtype``."""
+    return torch.full(tuple(shape), fill, dtype=dtype, device=device)

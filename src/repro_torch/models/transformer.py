@@ -1,20 +1,24 @@
 """Model assembly: embedding -> the layers -> final norm -> logits — port of
-``repro.models.transformer`` for attention blocks and dense FFNs.
+``repro.models.transformer`` for attention blocks with dense FFNs and for
+RWKV6 time-mix blocks with their channel mix.
 
 Parameters are nested dictionaries with the reference's names and shapes,
 except that the reference's stacked ``groups`` (one leading ``n_groups``
 axis per leaf, scanned with ``lax.scan``) become ``layers``: a list of
 ``cfg.n_layers`` per-layer dictionaries walked by a plain Python loop
 (layer l has the kinds ``cfg.blocks_in_group[l % cfg.period]``). Caches are
-a list of per-layer ``KVCache``s, written in place.
+a list of per-layer caches: a ``KVCache`` (written in place) for an
+attention layer, an ``RWKVCache`` (replaced in the list) for an RWKV layer.
 
 Three entry points: ``forward`` (teacher forcing), ``prefill`` (forward +
-KV cache build), ``decode_step`` (one token). Each takes ``use_kernel``
-(see ``repro_torch.models.attention``). ``loss_fn`` waits for the training
-slice; Mamba, MoE and RWKV blocks and the vision frontend raise.
+cache build), ``decode_step`` (one token). Each takes ``use_kernel`` (see
+``repro_torch.models.attention`` and ``repro_torch.models.rwkv``).
+``loss_fn`` waits for the training slice; Mamba and MoE blocks and the
+vision frontend raise.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional
 
 import torch
@@ -22,12 +26,17 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from . import attention as attn_mod
+from . import rwkv as rwkv_mod
 from .attention import KVCache
 from .layers import (embed, ffn, init_embedding, init_ffn, init_rmsnorm,
                      rmsnorm, rope_tables, unembed)
+from .rwkv import RWKVCache
 
-NOT_PORTED = ("not ported yet: this slice of repro_torch runs attention "
-              "blocks and dense FFNs (ROADMAP.md queue 1, item 12)")
+NOT_PORTED = ("not ported yet: repro_torch runs attention blocks with dense "
+              "FFNs and RWKV6 blocks with their channel mix (ROADMAP.md "
+              "queue 1, item 12)")
+# the (block, ffn) kinds a layer may have
+PORTED_KINDS = {("attn", "dense"), ("rwkv", "rwkv_cm")}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -43,7 +52,7 @@ def layer_kinds(cfg: ModelConfig):
 
 def _check_ported(cfg: ModelConfig) -> None:
     kinds = set(layer_kinds(cfg))
-    if cfg.frontend == "vision" or kinds - {("attn", "dense")}:
+    if cfg.frontend == "vision" or kinds - PORTED_KINDS:
         raise NotImplementedError(
             f"{cfg.name}: {sorted(kinds)}, frontend {cfg.frontend!r}: "
             + NOT_PORTED)
@@ -63,12 +72,18 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     D = cfg.d_model
     params = {"embed": init_embedding(generator, cfg.vocab_size, D, dtype,
                                       dev)}
-    params["layers"] = [
-        {"norm1": init_rmsnorm(D, dtype, dev),
-         "mix": attn_mod.init_attention(generator, cfg, dtype, dev),
-         "norm2": init_rmsnorm(D, dtype, dev),
-         "ffn": init_ffn(generator, cfg, cfg.d_ff, dtype, dev)}
-        for _ in range(cfg.n_layers)]
+    params["layers"] = []
+    for blk, _ in layer_kinds(cfg):
+        attn = blk == "attn"
+        mix = (attn_mod.init_attention if attn
+               else rwkv_mod.init_rwkv_time_mix)(generator, cfg, dtype, dev)
+        ffn_p = (init_ffn(generator, cfg, cfg.d_ff, dtype, dev) if attn
+                 else rwkv_mod.init_rwkv_channel_mix(generator, cfg, dtype,
+                                                     dev))
+        params["layers"].append({"norm1": init_rmsnorm(D, dtype, dev),
+                                 "mix": mix,
+                                 "norm2": init_rmsnorm(D, dtype, dev),
+                                 "ffn": ffn_p})
     params["final_norm"] = init_rmsnorm(D, dtype, dev)
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(generator, cfg.vocab_size, D,
@@ -77,15 +92,18 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
-                device: DeviceLike = None) -> List[KVCache]:
-    """One zeroed KVCache per layer. s_max is the KV capacity; sliding-window
-    archs get min(s_max, window) ring buffers."""
+                device: DeviceLike = None) -> List:
+    """One zeroed cache per layer: a KVCache for an attention layer (s_max
+    is the KV capacity; sliding-window archs get min(s_max, window) ring
+    buffers), an RWKVCache for an RWKV layer (its size does not depend on
+    s_max)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     cap = min(s_max, cfg.window) if cfg.window else s_max
     return [KVCache.zeros(batch, cfg.n_kv_heads, cap, cfg.d_head, dtype, dev)
-            for _ in range(cfg.n_layers)]
+            if blk == "attn" else RWKVCache.zeros(batch, cfg, dtype, dev)
+            for blk, _ in layer_kinds(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +113,8 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
 def _apply_block(p, cfg, kind, x, positions, mode, cache, rope, pos=None,
                  valid=None, use_kernel=None):
     """Returns (y, cache)."""
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_time_mix(p, cfg, x, cache, use_kernel=use_kernel)
     if kind != "attn":
         raise NotImplementedError(f"{kind} blocks: " + NOT_PORTED)
     if mode == "train":
@@ -107,27 +127,49 @@ def _apply_block(p, cfg, kind, x, positions, mode, cache, rope, pos=None,
                                           valid=valid, use_kernel=use_kernel)
 
 
-def _apply_ffn(p, cfg, kind, x):
-    if kind != "dense":
-        raise NotImplementedError(f"{kind} FFNs: " + NOT_PORTED)
-    return ffn(p, cfg, x)
+def _apply_ffn(p, cfg, kind, x, cache):
+    """Returns (y, cache): the RWKV channel mix threads the cache."""
+    if kind == "dense":
+        return ffn(p, cfg, x), cache
+    if kind == "rwkv_cm":
+        return rwkv_mod.rwkv_channel_mix(p, cfg, x, cache)
+    raise NotImplementedError(f"{kind} FFNs: " + NOT_PORTED)
+
+
+def _first_attention(cfg) -> Optional[int]:
+    """The index of the first attention layer, None if there is none."""
+    return next((i for i, (blk, _) in enumerate(layer_kinds(cfg))
+                 if blk == "attn"), None)
 
 
 def _run_layers(cfg, params, x, positions, mode, caches=None, pos=None,
-                valid=None, use_kernel=None):
+                valid=None, use_kernel=None, on_layer=None):
     """The reference's scan over layer groups as a loop over layers; caches
-    (if any) are updated in place. The RoPE tables of ``positions`` (and, in
-    decode, the validity vector ``valid``) are made once for all layers."""
-    rope = rope_tables(positions, cfg.d_head, cfg.rope_theta)
+    (if any) are updated in the list. The RoPE tables of ``positions`` (and,
+    in decode, the validity vector ``valid``) are made once for all layers,
+    and only if some layer is attention.
+
+    ``on_layer``, if given, is called after each layer's block (attention
+    or time mix) as ``on_layer(i, y, cache, rerun)``: ``y`` and ``cache``
+    are what the block returned, and ``rerun(use_kernel)`` runs the same
+    block again on the same input and cache with another kernel switch and
+    returns its (y, cache). (A rerun attention block writes its KV cache
+    slots again, with the same values.)"""
+    rope = (rope_tables(positions, cfg.d_head, cfg.rope_theta)
+            if _first_attention(cfg) is not None else None)
     for i, (layer, (blk, fk)) in enumerate(zip(params["layers"],
                                                layer_kinds(cfg))):
-        cache = caches[i] if caches is not None else None
+        cache_in = caches[i] if caches is not None else None
         h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
-        y, cache = _apply_block(layer["mix"], cfg, blk, h, positions, mode,
-                                cache, rope, pos, valid, use_kernel)
+        block = partial(_apply_block, layer["mix"], cfg, blk, h, positions,
+                        mode, cache_in, rope, pos, valid)
+        y, cache = block(use_kernel)
+        if on_layer is not None:
+            on_layer(i, y, cache, block)
         x = x + y
         h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
-        x = x + _apply_ffn(layer["ffn"], cfg, fk, h)
+        y, cache = _apply_ffn(layer["ffn"], cfg, fk, h, cache)
+        x = x + y
         if caches is not None:
             caches[i] = cache
     return x
@@ -144,40 +186,44 @@ def _logits(cfg, params, x):
 
 
 def forward(cfg: ModelConfig, params, batch,
-            use_kernel: Optional[bool] = None):
+            use_kernel: Optional[bool] = None, on_layer=None):
     """Teacher-forcing logits (B, S, V) and the auxiliary loss (0: no MoE).
-    batch: tokens (B, S) integer."""
+    batch: tokens (B, S) integer. ``on_layer``: see ``_run_layers``."""
     x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_layers(cfg, params, x, positions, "train", use_kernel=use_kernel)
+    x = _run_layers(cfg, params, x, positions, "train", use_kernel=use_kernel,
+                    on_layer=on_layer)
     return (_logits(cfg, params, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def prefill(cfg: ModelConfig, params, batch, s_max: int,
-            use_kernel: Optional[bool] = None):
+            use_kernel: Optional[bool] = None, on_layer=None):
     """Build caches from a full prompt. Returns (last_logits (B, V),
-    caches)."""
+    caches). ``on_layer``: see ``_run_layers``."""
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     caches = init_caches(cfg, B, s_max, device=x.device)
     x = _run_layers(cfg, params, x, positions, "prefill", caches,
-                    use_kernel=use_kernel)
+                    use_kernel=use_kernel, on_layer=on_layer)
     return _logits(cfg, params, x[:, -1:, :])[:, 0], caches
 
 
 def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int,
-                use_kernel: Optional[bool] = None):
+                use_kernel: Optional[bool] = None, on_layer=None):
     """One decode step. tokens (B, 1) integer; pos the current position (a
-    Python int). Returns (logits (B, V), caches), the caches updated in
-    place."""
+    Python int). Returns (logits (B, V), caches): the list it was given,
+    updated in place (KV caches written, RWKV caches replaced).
+    ``on_layer``: see ``_run_layers``."""
     x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
     pos = int(pos)
     positions = torch.arange(pos, pos + 1, device=x.device)
-    # int32, as the decode kernel takes it
-    valid = attn_mod.decode_valid(cfg, pos, caches[0].k.shape[2],
-                                  x.device).to(torch.int32)
+    # int32, as the decode kernel takes it; the attention layers' caches
+    # share one capacity
+    first = _first_attention(cfg)
+    valid = (None if first is None else attn_mod.decode_valid(
+        cfg, pos, caches[first].k.shape[2], x.device).to(torch.int32))
     x = _run_layers(cfg, params, x, positions, "decode", caches, pos=pos,
-                    valid=valid, use_kernel=use_kernel)
+                    valid=valid, use_kernel=use_kernel, on_layer=on_layer)
     return _logits(cfg, params, x)[:, 0], caches

@@ -84,16 +84,18 @@ def test_model_entry_points_refuse_the_cpu_unasked(no_cuda):
     from repro_torch.bridge import model_params_from_reference
     from repro_torch.configs import get_config
     from repro_torch.models import init_caches, init_model
-    cfg = get_config("qwen1.5-4b").reduced()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_model(cfg, torch.Generator())
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_caches(cfg, 1, 8)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        model_params_from_reference({}, cfg)
-    params = init_model(cfg, torch.Generator(), device="cpu")
-    assert params["embed"]["table"].device.type == "cpu"
-    assert init_caches(cfg, 1, 8, device="cpu")[0].k.device.type == "cpu"
+    for arch in ("qwen1.5-4b", "rwkv6-7b"):
+        cfg = get_config(arch).reduced()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_model(cfg, torch.Generator())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_caches(cfg, 1, 8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model_params_from_reference({}, cfg)
+        params = init_model(cfg, torch.Generator(), device="cpu")
+        assert params["embed"]["table"].device.type == "cpu"
+        cache = init_caches(cfg, 1, 8, device="cpu")[0]
+        assert all(t.device.type == "cpu" for t in cache)
 
 
 def test_tf32_is_off():

@@ -188,8 +188,8 @@ def test_layers_follow_the_repeat_unit():
     _close(lt, lj, FULL)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "rwkv6-7b",
-                                  "jamba-1.5-large-398b", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "jamba-1.5-large-398b",
+                                  "internvl2-26b"])
 def test_unported_blocks_raise(arch):
     cfg = tget(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
