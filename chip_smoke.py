@@ -11,26 +11,44 @@ Phases, one JSON object per line:
              rwkv6_scan) with nvcc into build/repro_torch_kernels/, one
              nvcc each, all started together, and times it.
 3. kernels — every alloc_objective entry (fleet value+gradient, fleet
-             value-only, single-problem) on the card at the shapes the
-             replay gives it, against its plain PyTorch version on the same
-             inputs (rtol = atol = 1e-4); the kernel's and the plain
-             version's device time per call (calls back to back in a CUDA
-             graph, between CUDA events; the kernel's launch alone, its
-             wrapper's (B, 8) scalar row built beforehand) and wall time per
-             call of the wrappers (CUDA events around calls from the host);
-             the least time the card could take (bytes at 3.35 TB/s or
-             float32 operations at 67 TFLOP/s, whichever is larger).
+             value-only, single-problem) on the card at the five shapes the
+             replay gives the fleet entries (B = 64 and T = 48, 4, 12 for
+             the value form, T = 4, 1 for value+gradient), each on the
+             padded bucket and on the unpadded n = 1880, against its plain
+             PyTorch version on the same inputs (rtol = atol = 1e-4); at
+             the padded shapes the kernel's and the plain version's device
+             time per call (calls back to back in a CUDA graph, between
+             CUDA events; the kernel's launch alone, its wrapper's (B, 8)
+             scalar row built beforehand), wall time per call of the
+             wrappers (CUDA events around calls from the host), the launch
+             plan, and the least time the card could take (bytes at
+             3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is
+             larger); and the device time of a one-element add, the cost
+             of one launch in a CUDA graph.
 4. replay  — the port's main path through its entry point:
              ``replay_fleet(make_cloud_catalog(), tenants,
              replay_mode="batched", run_ca_baseline=False)`` with 64 tenants
              over the full 1880-type catalog, 4 ticks (1 cold solve_fleet,
              3 warm solve_fleet_step), launch counts zeroed just before and
-             read just after; then the same replay with hot_loop="ref" (the
+             read just after, and the alloc_objective launches also counted
+             by entry and T; then the same replay with hot_loop="ref" (the
              plain PyTorch eq. (1)) on the card, which the kernel replay
              must match to the solver's tolerance (per tenant rtol 0.05,
              fleet aggregate 2e-2, identical per-tick satisfaction flags).
+   replay_scored — the kernel replay once more, every alloc_objective
+             launch also evaluated by the plain version and by eq. (1) in
+             float64: the largest error of each against float64, and of
+             the kernel against the plain version, over the 1e-4 tolerance;
+             and the replay with eq. (1) in float64 throughout, against the
+             plain and the kernel replays (per-tenant cost, tenants whose
+             committed counts differ): how near float32 rounding the
+             replay gate sits. It fails unless the kernel's f and g are no
+             farther from float64 than the plain version's (or within the
+             tolerance), and the kernel replay commits the float64
+             replay's counts for every tenant at every tick.
 5. profile — torch.profiler over one warm tick of the same fleet: device
-             busy share and the kernels that take the time.
+             busy share, the kernels that take the time, and the device
+             time and launches of the alloc_objective kernel.
 6. attention — the flash_attention and decode_attention kernels on the card
              against their plain PyTorch versions (on the float32 values of
              the same inputs; rtol = atol = 2e-4 in float32, 2e-2 in
@@ -96,6 +114,7 @@ without a CUDA device the script exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import itertools
 import json
 import subprocess
@@ -234,10 +253,12 @@ def timings(kern, plain, launch=None) -> dict:
             "call_ms": call_ms(kern), "plain_call_ms": call_ms(plain)}
 
 
-def profile_once(fn, top_n: int = 6) -> dict:
+def profile_once(fn, top_n: int = 6, match: str | None = None) -> dict:
     """Run ``fn()`` once under torch.profiler: wall ms (host clock to a
     synchronize), the summed device time of the CUDA kernels, the busy
-    share, the launch count and the kernels that take the most time."""
+    share, the launch count, the kernels that take the most time and, if
+    ``match`` is given, the device ms and count of the kernels whose name
+    holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -257,7 +278,13 @@ def profile_once(fn, top_n: int = 6) -> dict:
     events = [e for e in events if "spin_kernel" not in e.key]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.device_time_total)[:top_n]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    matched = {}
+    if match is not None:
+        hits = [e for e in events if match in e.key]
+        matched = {"matched": {
+            "name": match, "count": sum(e.count for e in hits),
+            "ms": sum(e.device_time_total for e in hits) / 1e3}}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, **matched,
             "primer_launches_seen": [primer_seen, PRIMER],
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,
             "device_launches": sum(e.count for e in events),
@@ -302,6 +329,81 @@ def kernel_bound(B, T, n, m, p, with_grad):
     t_ops = flops / F32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", 4 * elems, flops)
+
+
+def scored_replay(ops, ref, run_replay) -> dict:
+    """Run ``run_replay()`` with every alloc_objective launch also evaluated
+    by the plain version and by eq. (1) in float64 on the same inputs; the
+    largest error of the kernel's and of the plain version's f and g against
+    float64, over the 1e-4 tolerance, and of the kernel against the plain
+    version: how near float32 rounding the replay gate sits."""
+    worst = collections.defaultdict(float)
+    launch = ops._launch
+
+    def over(got, want):
+        return float(((got.double() - want.double()).abs()
+                      / (ATOL + RTOL * want.double().abs())).max())
+
+    def scored(entry, X, K, E, c, d, scal, with_grad):
+        f, g = launch(entry, X, K, E, c, d, scal, with_grad)
+        params = [scal[:, i] for i in range(5)]
+        args = (X, K, E, c, d, *params)
+        if with_grad:
+            got = {"kernel": (f, g),
+                   "plain": ref.alloc_objective_fleet_ref(*args)}
+            f64, g64 = ref.alloc_objective_fleet_ref(
+                *(t.double() for t in args))
+        else:
+            got = {"kernel": (f, None),
+                   "plain": (ref.alloc_objective_fleet_value(*args), None)}
+            f64, g64 = ref.alloc_objective_fleet_value(
+                *(t.double() for t in args)), None
+        for who, (fv, gv) in got.items():
+            worst[f"{who}_f_vs_float64"] = max(worst[f"{who}_f_vs_float64"],
+                                               over(fv, f64))
+            if with_grad:
+                worst[f"{who}_g_vs_float64"] = max(
+                    worst[f"{who}_g_vs_float64"], over(gv, g64))
+        worst["kernel_f_vs_plain"] = max(worst["kernel_f_vs_plain"],
+                                         over(f, got["plain"][0]))
+        if with_grad:
+            worst["kernel_g_vs_plain"] = max(worst["kernel_g_vs_plain"],
+                                             over(g, got["plain"][1]))
+        return f, g
+
+    ops._launch = scored
+    try:
+        run_replay()
+    finally:
+        ops._launch = launch
+    return dict(worst)
+
+
+def float64_replay(ops, ref, run_replay):
+    """``run_replay()`` with every eq. (1) evaluation of the fleet solver
+    done by the plain version in float64 (rounded to float32 after)."""
+    import torch
+    entries = ops.fleet_value, ops.fleet_value_and_grad
+
+    def args(prob, X):
+        Q = prob.params
+        return [t.double() for t in (X, prob.K, prob.E, prob.c, prob.d,
+                                     Q.alpha, Q.beta1, Q.beta2, Q.beta3,
+                                     Q.gamma)]
+
+    def value(prob, X, use_kernel=True):
+        return ref.alloc_objective_fleet_value(*args(prob, X)).float()
+
+    def value_and_grad(prob, X, use_kernel=True):
+        f, g = ref.alloc_objective_fleet_ref(*args(prob, X))
+        return f.float(), g.float()
+
+    ops.fleet_value, ops.fleet_value_and_grad = value, value_and_grad
+    try:
+        return run_replay()
+    finally:
+        ops.fleet_value, ops.fleet_value_and_grad = entries
+        torch.cuda.synchronize()
 
 
 def disagreement(name, got, want, rtol, atol) -> dict:
@@ -919,20 +1021,28 @@ def main() -> int:
                 Q.beta3, Q.gamma)
 
     t0 = time.perf_counter()
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = device_ms(lambda: one.add_(1))
     measured = {}
     checks = []
-    for name, prob, T in (("alloc_objective_fleet", batch.problem, n_starts),
-                          ("alloc_objective_fleet", ragged.problem, n_starts),
-                          ("alloc_objective_fleet_value", batch.problem,
-                           n_starts * L),
-                          ("alloc_objective_fleet_value", ragged.problem,
-                           n_starts * L)):
+    # the replay's shapes (entry, T): the cold tick's ladder and gradient
+    # (the first of each is the kernels line's), its value after rounding,
+    # the warm tick's ladder and gradient; each on the padded bucket (timed)
+    # and on the unpadded catalog (n = 1880, checked)
+    shapes = [("alloc_objective_fleet_value", n_starts * L),
+              ("alloc_objective_fleet", n_starts),
+              ("alloc_objective_fleet_value", n_starts),
+              ("alloc_objective_fleet_value", L),
+              ("alloc_objective_fleet", 1)]
+    for (name, T), prob in itertools.product(shapes, (batch.problem,
+                                                       ragged.problem)):
         X = points(prob, T)
         B, n = prob.c.shape
+        grad = name == "alloc_objective_fleet"
         scal = ops._fleet_scalars(prob)
         launch = lambda: ops._launch(name, X, prob.K, prob.E, prob.c, prob.d,
-                                     scal, name == "alloc_objective_fleet")
-        if name == "alloc_objective_fleet":
+                                     scal, grad)
+        if grad:
             f, g = ops.fleet_value_and_grad(prob, X)
             fr, gr = ref.alloc_objective_fleet_ref(X, *plain_args(prob))
             rec = compare(name, torch.cat([f.flatten(), g.flatten()]),
@@ -951,10 +1061,13 @@ def main() -> int:
                                      "p": p_pad})
         if n == n_pad:      # the replay's shape: time it
             bound_ms, bound_by, nbytes, flops = kernel_bound(
-                B, T, n, m_pad, p_pad, name == "alloc_objective_fleet")
+                B, T, n, m_pad, p_pad, grad)
+            plan = ops.launch_plan(B, T, n, m_pad, p_pad,
+                                   ops._sm_count(dev.index))
             rec.update(**timings(kern, plain, launch), bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=nbytes, flops=flops)
-            measured[name] = rec
+                       bound_by=bound_by, bytes=nbytes, flops=flops,
+                       plan=plan._asdict())
+            measured.setdefault(name, rec)
         checks.append(rec)
     # the single-problem entry: S = 128 starts of tenant 0 (n = 1880)
     single = tenant_problem(batch, 0)
@@ -981,7 +1094,8 @@ def main() -> int:
     measured["alloc_objective"] = rec
     checks.append(rec)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "rtol": RTOL, "atol": ATOL, "checks": checks})
+          "rtol": RTOL, "atol": ATOL, "launch_floor_ms": launch_floor_ms,
+          "checks": checks})
 
     # ---- replay: the main path, kernel then plain ------------------------
     solve_log = []
@@ -1000,9 +1114,20 @@ def main() -> int:
 
     replay_mod.solve_fleet = timed(replay_mod.solve_fleet, "cold")
     replay_mod.solve_fleet_step = timed(replay_mod.solve_fleet_step, "warm")
+    # the kernel's launches by entry and T (rows per problem)
+    by_shape = collections.Counter()
+    launch_fn = ops._launch
+
+    def counted_launch(entry, X, *a, **kw):
+        out = launch_fn(entry, X, *a, **kw)
+        by_shape[f"{entry}@T={X.shape[1]}"] += 1
+        return out
+
+    ops._launch = counted_launch
 
     def run(hot_loop):
         solve_log.clear()
+        by_shape.clear()
         for kernel_ops in (ops, fops, dops, sops):
             kernel_ops.reset_launches()
         torch.cuda.synchronize()
@@ -1013,9 +1138,10 @@ def main() -> int:
         wall = time.perf_counter() - s0
         if any({**fops.LAUNCHES, **dops.LAUNCHES, **sops.LAUNCHES}.values()):
             raise AssertionError("the replay launched a model's kernels")
-        return out, wall, dict(ops.LAUNCHES), list(solve_log)
+        return (out, wall, dict(ops.LAUNCHES), list(solve_log),
+                dict(sorted(by_shape.items())))
 
-    def summary(out, wall, launches, solves):
+    def summary(out, wall, launches, solves, launches_by_shape):
         sat = np.asarray([[s.metrics.satisfied for s in r.steps]
                           for r in out.tenants])
         counts = np.stack([s.counts for r in out.tenants for s in r.steps])
@@ -1027,6 +1153,7 @@ def main() -> int:
                 "host_s_per_tick": (wall - sum(s["seconds"] for s in solves))
                 / args.ticks,
                 "launches": launches,
+                "launches_by_shape": launches_by_shape,
                 "feasible_tenants": int(sat.all(1).sum()),
                 "satisfied_ticks": int(sat.sum()),
                 "cost_integral": out.metrics.total_cost_integral,
@@ -1043,6 +1170,7 @@ def main() -> int:
             raise AssertionError(f"the replay never launched {name}")
     p_out, *p_rest = run("ref")
     p_sum, p_sat = summary(p_out, *p_rest)
+    ops._launch = launch_fn
     if any(p_rest[1].values()):
         raise AssertionError(f"the plain replay launched kernels: {p_rest[1]}")
     k_cost = np.asarray([r.metrics.cost_integral for r in k_out.tenants])
@@ -1057,6 +1185,37 @@ def main() -> int:
     if not (rel.max() <= TENANT_RTOL and agg <= FLEET_RTOL
             and np.array_equal(k_sat, p_sat)):
         raise AssertionError("kernel replay disagrees with the plain replay")
+    t0 = time.perf_counter()
+    kernel_replay = lambda: replay_fleet(catalog, tenants,
+                                         replay_mode="batched",
+                                         run_ca_baseline=False)
+    scores = scored_replay(ops, ref, kernel_replay)
+    exact = float64_replay(ops, ref, kernel_replay)
+
+    def against(out, other):
+        cost = np.asarray([r.metrics.cost_integral for r in out.tenants])
+        ref_cost = np.asarray([r.metrics.cost_integral for r in other.tenants])
+        return {"max_tenant_rel_diff": float(
+                    (np.abs(cost - ref_cost) / np.abs(ref_cost)).max()),
+                "tenants_with_other_counts": [
+                    b for b, (x, y) in enumerate(zip(out.tenants,
+                                                     other.tenants))
+                    if not all(np.array_equal(s.counts, t.counts)
+                               for s, t in zip(x.steps, y.steps))]}
+
+    k_vs_exact = against(k_out, exact)
+    emit({"phase": "replay_scored", "seconds": time.perf_counter() - t0,
+          "max_over_tol": scores,
+          "float64_replay_vs_plain": against(exact, p_out),
+          "kernel_replay_vs_float64": k_vs_exact})
+    for v in "fg":
+        if scores[f"kernel_{v}_vs_float64"] > max(
+                1.0, scores[f"plain_{v}_vs_float64"]):
+            raise AssertionError(f"the kernel's {v} is farther from float64 "
+                                 "than the plain version's")
+    if k_vs_exact["tenants_with_other_counts"]:
+        raise AssertionError("the kernel replay commits other counts than "
+                             "the float64 replay")
 
     # ---- profile one warm tick -------------------------------------------
     X_cur = torch.as_tensor(np.stack(
@@ -1071,7 +1230,7 @@ def main() -> int:
     torch.cuda.synchronize()
     res = []
     prof = profile_once(lambda: res.append(step(batch1, X_cur, delta)),
-                        top_n=8)
+                        top_n=8, match="alloc_objective")
     emit({"phase": "profile", "what": "one warm solve_fleet_step",
           "iters_max": int(res[0].iters.max()), **prof})
 

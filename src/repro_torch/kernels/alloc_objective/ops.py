@@ -7,7 +7,9 @@ the plain PyTorch version in ``ref``. ``use_kernel=False`` asks for the
 plain version on any device, as the reference's ``use_kernel`` does.
 
 Unlike the Pallas wrappers these pad nothing: the kernel masks the ragged
-tail of n itself and takes any number of rows.
+tail of n itself and takes any number of rows. Its launch geometry comes
+from ``launch_plan``, a plain function of the shapes and the card's SM
+count.
 
 ``LAUNCHES`` counts the kernel launches of each entry: a plain integer per
 entry, raised by one where the kernel is launched and nowhere else.
@@ -15,7 +17,9 @@ entry, raised by one where the kernel is launched and nowhere else.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +31,50 @@ from . import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "alloc_objective.cu"
 MAX_M = 8   # kMaxM in the source
 MAX_P = 8   # kMaxP in the source
+MAX_ROWS = 16            # kMaxRows: rows a block holds (8 warps, 2 a warp)
+TILE_COLS = 512          # kTileCols: a tile of the stage starts at a multiple
+SMEM_LIMIT = 232_448     # kSmemLimit: 227 KB of dynamic shared memory a block
+WEIGHT_BYTES = 4 * MAX_ROWS * (MAX_M + MAX_P)   # the rows' gradient weights
+H100_SMS = 132
+
+
+class LaunchPlan(NamedTuple):
+    """The kernel's geometry: grid (blocks, B) of 8-warp blocks, block j
+    holding rows [j * rows_per_block, (j + 1) * rows_per_block) of its
+    problem below T (warp w carries row w, or rows 2w and 2w + 1 where a
+    block holds more than 8); the block stages ``n_tile`` columns of c_b,
+    K_b, E_b at a time, after the rows' gradient weights, in ``smem_bytes``
+    of shared memory. The fields are the C entry's arguments, in its
+    order."""
+
+    blocks: int
+    rows_per_block: int
+    n_tile: int
+    smem_bytes: int
+
+
+def launch_plan(B: int, T: int, n: int, m: int, p: int,
+                sms: int = H100_SMS) -> LaunchPlan:
+    """Rows per block from (B, T): 16 (two a warp) where T > 16, else up to
+    8, but no more than leave every one of the ``sms`` SMs a block where
+    the B T rows allow. Every block stages c_b, K_b, E_b once, so fuller
+    blocks move fewer bytes; at small T a block's time is its load latency,
+    which more blocks spread over more SMs. The stage is all of n where it
+    fits in ``SMEM_LIMIT``, else the widest multiple of ``TILE_COLS`` that
+    does."""
+    full = MAX_ROWS if T > MAX_ROWS else MAX_ROWS // 2
+    rows = max(1, min(full, T, -(-B * T // sms)))
+    width = 4 * (1 + m + p)
+    room = SMEM_LIMIT - WEIGHT_BYTES
+    n_tile = (n if width * n <= room
+              else room // (width * TILE_COLS) * TILE_COLS)
+    return LaunchPlan(-(-T // rows), rows, n_tile,
+                      width * n_tile + WEIGHT_BYTES)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 LAUNCHES = {"alloc_objective_fleet": 0, "alloc_objective_fleet_value": 0,
             "alloc_objective": 0}
@@ -40,7 +88,8 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.alloc_objective_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -57,24 +106,27 @@ def _launch(entry: str, X, K, E, c, d, scal, with_grad: bool):
         raise ValueError(f"alloc_objective: m={m}, p={p}; the kernel takes "
                          f"m <= {MAX_M} and p <= {MAX_P}")
     dev = X.device
-    for name, t, shape in (("X", X, (B, T, n)), ("K", K, (B, m, n)),
-                           ("E", E, (B, p, n)), ("c", c, (B, n)),
-                           ("d", d, (B, m)), ("scalars", scal, (B, 8))):
+    vec = 16 if n % 4 == 0 else 4     # the kernel's 16-byte loads and copies
+    for name, t, shape, align in (
+            ("X", X, (B, T, n), vec), ("K", K, (B, m, n), vec),
+            ("E", E, (B, p, n), vec), ("c", c, (B, n), vec),
+            ("d", d, (B, m), 4), ("scalars", scal, (B, 8), 4)):
         check_operand("alloc_objective", name, t, shape, torch.float32, dev,
-                      align=4)
+                      align=align)
     f = torch.empty((B, T), dtype=torch.float32, device=dev)
     g = (torch.empty((B, T, n), dtype=torch.float32, device=dev)
          if with_grad else None)
     if B * T == 0:
         return f, g
     lib = _lib()
+    plan = launch_plan(B, T, n, m, p, _sm_count(dev.index))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.alloc_objective_launch(
             X.data_ptr(), K.data_ptr(), E.data_ptr(), c.data_ptr(),
             d.data_ptr(), scal.data_ptr(), f.data_ptr(),
             g.data_ptr() if with_grad else None,
-            B, T, n, m, p, int(with_grad), stream)
+            B, T, n, m, p, int(with_grad), *plan, stream)
     if err != 0:
         raise RuntimeError(f"alloc_objective: launch failed with CUDA error "
                            f"{err}")

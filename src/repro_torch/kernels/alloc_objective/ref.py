@@ -4,6 +4,9 @@ jnp oracle ``repro.kernels.alloc_objective.ref``.
 The CPU path of every wrapper in ``ops``, and what ``chip_smoke.py`` holds
 the CUDA kernel to on the card.
 
+X is computed in K's type (float32 everywhere in the port; float64 where
+``chip_smoke.py`` scores both versions against eq. (1) in double).
+
 Shapes: X (S, n) starts for one problem with K (m, n), E (p, n), c (n,),
 d (m,) and scalar params; or, for the fleet forms, X (B, T, n) with
 K (B, m, n), E (B, p, n), c (B, n), d (B, m) and params (B,) each.
@@ -15,7 +18,7 @@ import torch
 
 def alloc_objective_ref(X, K, E, c, d, alpha, beta1, beta2, beta3, gamma):
     """One problem, S points: (f (S,), grad (S, n))."""
-    X = X.to(torch.float32)
+    X = X.to(K.dtype)
     KX = torch.einsum("mn,sn->sm", K, X)               # (S, m)
     EX = torch.einsum("pn,sn->sp", E, X)               # (S, p)
     p = E.shape[0]
@@ -38,7 +41,7 @@ def alloc_objective_ref(X, K, E, c, d, alpha, beta1, beta2, beta3, gamma):
 
 def _fleet_forward(X, K, E, c, d, alpha, beta1, beta2, beta3, gamma):
     """Shared value computation + the intermediates the gradient reuses."""
-    X = X.to(torch.float32)
+    X = X.to(K.dtype)
     KX = torch.einsum("bmn,btn->btm", K, X)            # (B, T, m)
     EX = torch.einsum("bpn,btn->btp", E, X)            # (B, T, p)
 

@@ -42,14 +42,30 @@ def _close(got, want):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
 
+def _batch(B, m, n, p, device):
+    return stack_problems([_problem(s, m, n, p, device) for s in range(B)])
+
+
+def _points(B, T, n, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return 5.0 * torch.rand((B, T, n), generator=gen, device=device)
+
+
+# (B, T, m, n, p): the replay's four shapes at the bucketed n = 2048; the
+# ragged catalog n = 1880; n % 4 != 0 (the kernel's 4-byte path); n < 32;
+# stages that must be tiled at m = p = 8 (17 n floats over 227 KB), on the
+# 16-byte path (n = 4096) and the 4-byte path (n = 3501); m, p over
+# {2, 3, 4, 8}, 3 through the runtime-bounded instantiation
 @pytest.mark.parametrize("B,T,m,n,p", [
-    (64, 4, 4, 2048, 2), (64, 48, 4, 2048, 2), (3, 5, 3, 37, 3),
-    (2, 1, 4, 1880, 2), (1, 300, 8, 513, 8)])
+    (64, 48, 4, 2048, 2), (64, 12, 4, 2048, 2), (64, 4, 4, 2048, 2),
+    (64, 1, 4, 2048, 2), (2, 1, 4, 1880, 2), (3, 5, 3, 37, 3),
+    (1, 300, 8, 513, 8), (5, 9, 4, 513, 2), (4, 6, 2, 7, 2),
+    (3, 3, 4, 16, 4), (3, 5, 8, 4096, 8), (2, 3, 8, 3501, 8),
+    (6, 7, 2, 300, 8), (6, 7, 8, 300, 2), (6, 7, 3, 300, 4),
+    (6, 7, 4, 300, 3), (6, 7, 2, 300, 2), (6, 7, 8, 300, 8)])
 def test_fleet_kernel_matches_plain(cuda, B, T, m, n, p):
-    batch = stack_problems([_problem(s, m, n, p, cuda) for s in range(B)])
-    P = batch.problem
-    gen = torch.Generator(device=cuda).manual_seed(B * T)
-    X = 5.0 * torch.rand((B, T, n), generator=gen, device=cuda)
+    P = _batch(B, m, n, p, cuda).problem
+    X = _points(B, T, n, cuda, B * T)
     args = (P.K, P.E, P.c, P.d, *P.params)
     f, g = ops.fleet_value_and_grad(P, X)
     fr, gr = ref.alloc_objective_fleet_ref(X, *args)
@@ -79,6 +95,36 @@ def test_batched_equals_per_lane_bitwise(cuda):
     one = stack_problems([_problem(2, 4, 300, 2, cuda)])
     f1, g1 = ops.fleet_value_and_grad(one.problem, X[2:3].contiguous())
     assert torch.equal(f[2:3], f1) and torch.equal(g[2:3], g1)
+
+
+@pytest.mark.parametrize("m,n,p", [(4, 2048, 2), (3, 513, 3), (8, 4096, 8)])
+def test_rows_do_not_depend_on_batch_or_plan_bitwise(cuda, m, n, p):
+    """A lane's f and g are the same bits whether its rows run in a
+    (64, 48) call (16 rows a block, two a warp), alone at B = 1, seven at
+    a time (T = 7) or one at a time (T = 1)."""
+    P = _batch(64, m, n, p, cuda).problem
+    X = _points(64, 48, n, cuda, 7)
+    assert len({ops.launch_plan(B, T, n, m, p).rows_per_block
+                for B, T in ((64, 48), (64, 7), (1, 1))}) == 3
+    f, g = ops.fleet_value_and_grad(P, X)
+    one = stack_problems([_problem(5, m, n, p, cuda)]).problem
+    f1, g1 = ops.fleet_value_and_grad(one, X[5:6].contiguous())
+    assert torch.equal(f[5:6], f1) and torch.equal(g[5:6], g1)
+    for t in (0, 17, 47):
+        ft, gt = ops.fleet_value_and_grad(one, X[5:6, t:t + 1].contiguous())
+        assert torch.equal(f[5, t], ft[0, 0]) and torch.equal(g[5, t], gt[0, 0])
+    f7 = ops.fleet_value(P, X[:, :7].contiguous())
+    assert torch.equal(f[:, :7], f7)
+
+
+@pytest.mark.parametrize("B,T,m,n,p", [
+    (64, 48, 4, 2048, 2), (64, 1, 4, 2048, 2), (3, 5, 3, 37, 3),
+    (2, 3, 8, 3501, 8)])
+def test_value_only_equals_value_and_grad_bitwise(cuda, B, T, m, n, p):
+    P = _batch(B, m, n, p, cuda).problem
+    X = _points(B, T, n, cuda, T)
+    assert torch.equal(ops.fleet_value(P, X),
+                       ops.fleet_value_and_grad(P, X)[0])
 
 
 def test_core_objective_routes_cuda_tensors_to_the_kernel(cuda):
