@@ -10,6 +10,11 @@ Phases, one JSON object per line:
              (alloc_objective, flash_attention, decode_attention,
              rwkv6_scan) with nvcc into build/repro_torch_kernels/, one
              nvcc each, all started together, and times it.
+   flash_build — each flash_attention instantiation (float32 and bfloat16,
+             dh 16 to 128): registers and spills from ptxas -v, and its
+             HMMA (tensor-core) instructions counted in the library's
+             machine code by cuobjdump -sass, where the toolkit has it;
+             fails if an instantiation has none.
 3. kernels — every alloc_objective entry (fleet value+gradient, fleet
              value-only, single-problem) on the card at the five shapes the
              replay gives the fleet entries (B = 64 and T = 48, 4, 12 for
@@ -61,7 +66,11 @@ Phases, one JSON object per line:
              rotating copies of its inputs so that every call finds the L2
              cache cold, as a layer of the served model does; the least time
              the card could take (bytes at 3.35 TB/s or operations at the
-             input type's peak rate, whichever is larger).
+             peak rate of the kernel's route, whichever is larger: flash in
+             float32 as 3xTF32, three TF32 products at 495 TFLOP/s for each
+             product, with the FP32-pipe figure at 67 TFLOP/s beside it;
+             bfloat16 at 989 TFLOP/s; decode_attention in float32 at
+             67 TFLOP/s).
 7. serve   — the second main path: qwen1.5-4b at full width and depth
              (40 layers, d_model 2560, float32, random weights from --seed)
              through ``init_model``, ``make_prefill_step`` and
@@ -117,6 +126,7 @@ import argparse
 import collections
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -124,6 +134,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 L2_BYTES = 50e6               # H100 L2 cache
 PRIMER = 32                   # spin kernels that open a profiler window
@@ -430,17 +441,53 @@ def compare(name, got, want, rtol=RTOL, atol=ATOL):
     return rec
 
 
-def flash_bound(B, S, H, G, dh, window, itemsize, flops_per_s) -> dict:
+def flash_bound(B, S, H, G, dh, window, dtype) -> dict:
     """q, k, v read once and o written once; 4 dh operations (q.k and p.v)
     per live (query, key) pair, the pairs this causal (and windowed) mask
-    keeps."""
+    keeps. The operations are counted for the kernel's route: in bfloat16
+    at the bf16 tensor-core rate; in float32 as 3xTF32, three TF32 products
+    for each, at the TF32 rate (the same work on the FP32 pipes is kept as
+    ``fp32_pipe_bound_ms``)."""
     if window > 0:
         w = min(window, S)
         live = w * (w + 1) // 2 + (S - w) * w
     else:
         live = S * (S + 1) // 2
+    itemsize = 4 if dtype == "float32" else 2
     nbytes = itemsize * (2 * B * S * H * dh + 2 * B * S * G * dh)
-    return bound(nbytes, 4 * dh * live * B * H, flops_per_s)
+    flops = 4 * dh * live * B * H
+    if dtype != "float32":
+        return {**bound(nbytes, flops, BF16_FLOPS_PER_S), "route": "bf16"}
+    rec = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    return {**rec, "flops": flops, "route": "3xTF32",
+            "fp32_pipe_bound_ms": bound(nbytes, flops,
+                                        F32_FLOPS_PER_S)["bound_ms"]}
+
+
+FLASH_KERNEL = re.compile(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def flash_build_report(library) -> dict:
+    """Each flash_attention instantiation's registers and spills (ptxas -v)
+    and its HMMA (tensor-core) instructions in the library's machine code;
+    raises if an instantiation has none (where cuobjdump can tell)."""
+    from repro_torch.kernels.build import ptxas_report, sass_counts
+    hmma = sass_counts(library, "HMMA")
+    out = {}
+    for fn, rec in ptxas_report(library).items():
+        m = FLASH_KERNEL.search(fn)
+        if m:
+            dtype = "float32" if m.group(1) == "f" else "bfloat16"
+            out[f"{dtype}/dh{m.group(2)}"] = {
+                **rec, "hmma": None if hmma is None else hmma.get(fn, 0)}
+    if len(out) != 8:
+        raise AssertionError(f"flash_attention: expected 8 instantiations "
+                             f"in the build log, found {sorted(out)}")
+    if hmma is not None and not all(r["hmma"] for r in out.values()):
+        raise AssertionError(f"flash_attention: an instantiation without "
+                             f"tensor-core instructions: {out}")
+    return {"instantiations": dict(sorted(out.items())),
+            "sass_read": hmma is not None}
 
 
 def decode_bound(B, H, G, dh, n_valid, S, itemsize, flops_per_s) -> dict:
@@ -485,7 +532,7 @@ def attention_checks(seed: int, dev):
     checks, measured = [], {}
     for case, (B, S, H, G, dh, window, dtype) in FLASH_CASES.items():
         dt = getattr(torch, dtype)
-        est = flash_bound(B, S, H, G, dh, window, dt.itemsize, rate[dtype])
+        est = flash_bound(B, S, H, G, dh, window, dtype)
         sets = [(rand((B, S, H, dh), dt), rand((B, S, G, dh), dt),
                  rand((B, S, G, dh), dt))
                 for _ in range(copies_for(est["bytes"]))]
@@ -990,6 +1037,9 @@ def main() -> int:
                          if "registers" in ln or "spill" in ln
                          or "smem" in ln]}
         for name, src in sources.items()}})
+
+    emit({"phase": "flash_build",
+          **flash_build_report(libs[sources["flash_attention"]])})
 
     # ---- inputs: the fleet's tick-0 problems, as the replay stacks them --
     catalog = make_cloud_catalog()

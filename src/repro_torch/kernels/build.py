@@ -5,18 +5,21 @@ for ``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root
 (listed in ``.gitignore``), then loaded with ``ctypes``. A library is named
 after a hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is reused. ``nvcc``'s output, with ``-Xptxas=-v``'s register
-and spill counts, is kept beside each library as ``<name>.log``.
+and spill counts, is kept beside each library as ``<name>.log``;
+``ptxas_report`` reads those counts back per kernel, and ``sass_counts``
+counts an instruction in a library's machine code (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from functools import lru_cache
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,6 +78,69 @@ def build_libraries(sources: Sequence[Path]) -> Dict[Path, Path]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """-Xptxas=-v's lines, per kernel (mangled name): registers, spill
+    stores and spill loads (bytes), stack frame (bytes)."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$.]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(stack_frame=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_report(library: Path) -> Dict[str, Dict[str, int]]:
+    """``parse_ptxas`` of the build log kept beside ``library``."""
+    return parse_ptxas(Path(library).with_suffix(".log").read_text())
+
+
+def parse_sass_counts(sass: str, opcode: str) -> Dict[str, int]:
+    """Instructions whose opcode starts with ``opcode`` (HMMA.1688.F32.TF32
+    counts as HMMA), per function of ``cuobjdump -sass``'s listing."""
+    out: Dict[str, int] = {}
+    fn = None
+    pat = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     + re.escape(opcode) + r"\b")
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, 0)
+        elif fn is not None and pat.search(line):
+            out[fn] += 1
+    return out
+
+
+def sass_counts(library: Path, opcode: str) -> Optional[Dict[str, int]]:
+    """``parse_sass_counts`` of ``cuobjdump -sass library``; None where the
+    toolkit has no cuobjdump."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        found = shutil.which("cuobjdump")
+        if found is None:
+            return None
+        tool = Path(found)
+    sass = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=NVCC_TIMEOUT_S).stdout
+    return parse_sass_counts(sass, opcode)
 
 
 @lru_cache(maxsize=None)

@@ -50,6 +50,14 @@ def _close(got, want, dtype):
     (2, 77, 4, 1, 64, 0, torch.float32),
     (3, 130, 6, 2, 32, 40, torch.bfloat16),
     (1, 5, 2, 2, 16, 0, torch.float32),
+    (2, 1024, 16, 4, 128, 256, torch.bfloat16),  # bf16 GQA + window
+    (2, 700, 12, 4, 64, 100, torch.bfloat16),
+    (2, 5, 4, 2, 16, 3, torch.float32),
+    # window 20, a multiple of no tile: the later rows of a query tile have
+    # no live key in the first key tile it visits, its earlier rows do
+    (2, 333, 4, 2, 64, 20, torch.float32),
+    (2, 333, 4, 2, 64, 20, torch.bfloat16),
+    (1, 200, 4, 1, 32, 1, torch.float32),        # one live key a row
 ])
 def test_flash_kernel_matches_plain(cuda, B, S, H, G, dh, window, dtype):
     gen = torch.Generator(device=cuda).manual_seed(S + H + window)
@@ -61,6 +69,25 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, G, dh, window, dtype):
     assert fops.LAUNCHES["flash_attention"] == 1
     _close(out, fref.flash_attention_ref(q.float(), k.float(), v.float(),
                                          window), dtype)
+
+
+@pytest.mark.parametrize("B,S,H,G,dh,window", [
+    (2, 512, 8, 2, 128, 0),
+    (2, 300, 4, 4, 64, 100),
+    (1, 77, 2, 1, 16, 0),
+])
+def test_flash_kernel_float32_keeps_2e4_at_wide_scores(cuda, B, S, H, G, dh,
+                                                        window):
+    """q scaled by 8: the scores spread with a standard deviation of about
+    8, so a product that kept only TF32's 10 mantissa bits (or lost 3xTF32's
+    small terms) shows at 2e-4 against the float64 plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(S + dh)
+    q = 8.0 * _rand(gen, (B, S, H, dh), torch.float32, cuda)
+    k, v = (_rand(gen, (B, S, G, dh), torch.float32, cuda) for _ in range(2))
+    out = fops.flash_attention(q, k, v, window)
+    want = fref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                    window)
+    _close(out, want, torch.float32)
 
 
 @pytest.mark.parametrize("B,S,H,G,dh,valid,dtype", [

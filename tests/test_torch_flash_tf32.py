@@ -1,0 +1,146 @@
+"""Why the float32 flash_attention kernel multiplies in 3xTF32: on the CPU,
+causal attention with every product rounded as the kernel's tensor-core
+route rounds it, against float64.
+
+The kernel splits each float32 operand x into big = cvt.rna.tf32.f32(x) and
+small = cvt.rna.tf32.f32(x - big) and forms each product as small.big +
+big.small + big.big in float32 (three mma.sync TF32 products, the small
+terms first). Here ``tf32_rna`` does that rounding in torch (10 mantissa
+bits, to nearest, ties away from zero), and the products of TF32 values,
+exact in float32, are summed by torch's float32 matmul. The reference's
+tolerance for float32 attention is 2e-4 (tests/kernels/test_kernels.py:10);
+plain 1xTF32 (one product of the two bigs) is reported beside it:
+
+    PYTHONPATH=src python tests/test_torch_flash_tf32.py
+"""
+import math
+
+import numpy as np
+import pytest
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
+
+torch = pytest.importorskip("torch")
+
+TOL = 2e-4          # tests/kernels/test_kernels.py:10-11
+S, DH = 128, 128    # the reduced attention: one head, causal
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 of float32 ``x``: its 13 low mantissa bits rounded
+    away, to nearest, ties away from zero (adding half a TF32 ulp to the
+    magnitude's bits and truncating)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with every product small.big + big.small + big.big, in that
+    order, summed in float32."""
+    a_big, a_small = split(a)
+    b_big, b_small = split(b)
+    acc = a_small @ b_big
+    acc = acc + a_big @ b_small
+    return acc + a_big @ b_big
+
+
+def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def attention(q, k, v, mm):
+    """Causal attention as the kernel orders it: scores, the unnormalised
+    probabilities exp(s - max) in the working type, p.v, then / sum."""
+    s = mm(q, k.T) / math.sqrt(q.shape[1])
+    live = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(live, s, torch.tensor(-1e30, dtype=s.dtype))
+    p = torch.exp(s - s.max(dim=1, keepdim=True).values)
+    return mm(p, v) / p.sum(dim=1, keepdim=True)
+
+
+def inputs(seed: int, q_scale: float):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.tensor(rng.normal(0, 1, (S, DH)), dtype=torch.float32)
+               for _ in range(3))
+    return q_scale * q, k, v
+
+
+def errors(seed: int, q_scale: float):
+    """Largest |error| against float64, and over atol + rtol |want| (the
+    reference's test), of attention in 3xTF32 and in 1xTF32."""
+    q, k, v = inputs(seed, q_scale)
+    want = attention(q.double(), k.double(), v.double(),
+                     lambda a, b: a @ b)
+    out = {}
+    for name, mm in (("3xtf32", mm_3xtf32), ("1xtf32", mm_1xtf32)):
+        err = (attention(q, k, v, mm).double() - want).abs()
+        out[name] = (err.max().item(),
+                     (err / (TOL + TOL * want.abs())).max().item())
+    return out
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10                     # TF32's ulp at 1
+    x = torch.tensor([one + ulp / 2,     # a tie: away from zero
+                      -(one + ulp / 2),
+                      one + ulp / 2 - 2.0 ** -23,   # just below: down
+                      one + 3 * ulp / 2,            # a tie above an odd
+                      one + ulp,                    # already TF32
+                      2.0 ** -136,                  # subnormal, kept
+                      2.0 ** -140],                 # below half its ulp
+                     dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                         one + ulp, 2.0 ** -136, 0.0], dtype=torch.float32)
+    assert torch.equal(tf32_rna(x), want)
+    assert not (tf32_rna(x).view(torch.int32) & 0x1FFF).any()
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(st.floats(min_value=-2.0 ** 100, max_value=2.0 ** 100, allow_nan=False,
+                 allow_subnormal=False, width=32))
+@example(x=7.2339901005025365e-37)   # about 2^-121: x - big is subnormal
+@example(x=1.0 + 2.0 ** -11 + 2.0 ** -22)
+def test_big_plus_small_keeps_22_bits(x):
+    t = torch.tensor([x], dtype=torch.float32)
+    big, small = split(t)
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    assert not (small.view(torch.int32) & 0x1FFF).any()
+    # x - big is exact (Sterbenz), and small rounds it to nearest at half
+    # its own TF32 ulp: at most 2^-11 of x - big, so 2^-22 of x. Where
+    # x - big is subnormal (|x| below about 2^-115), small keeps only
+    # multiples of 2^-136 (the 13 low bits of a subnormal cleared), so the
+    # error is at most 2^-137 instead.
+    assert abs((big.double() + small.double() - x).item()) <= \
+        max(abs(x) * 2.0 ** -22, 2.0 ** -137)
+
+
+@settings(max_examples=12, deadline=None, database=None)
+@given(seed=st.integers(0, 2 ** 32 - 1), q_scale=st.sampled_from([1.0, 8.0]))
+def test_3xtf32_attention_is_within_the_reference_tolerance(seed, q_scale):
+    err, over = errors(seed, q_scale)["3xtf32"]
+    assert over <= 1.0, (err, over)
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_1xtf32_lands_farther_than_3xtf32(q_scale):
+    """The figure PERF.md reports for 1xTF32 (not held to a limit): only
+    its order against 3xTF32's is asserted."""
+    e = errors(0, q_scale)
+    print(f"q x {q_scale:g}: |err| 3xTF32 {e['3xtf32'][0]:.3g}, "
+          f"1xTF32 {e['1xtf32'][0]:.3g} ({e['1xtf32'][1]:.3g} x tol)")
+    assert e["3xtf32"][0] < e["1xtf32"][0]
+
+
+if __name__ == "__main__":
+    for q_scale in (1.0, 8.0):
+        for seed in range(4):
+            e = errors(seed, q_scale)
+            print(f"S={S} dh={DH} q x {q_scale:g} seed {seed}: "
+                  + ", ".join(f"{k} max |err| {a:.3e} ({b:.3g} x tol)"
+                              for k, (a, b) in e.items()))
