@@ -10,11 +10,13 @@ Phases, one JSON object per line:
              (alloc_objective, flash_attention, decode_attention,
              rwkv6_scan) with nvcc into build/repro_torch_kernels/, one
              nvcc each, all started together, and times it.
-   flash_build — each flash_attention instantiation (float32 and bfloat16,
-             dh 16 to 128): registers and spills from ptxas -v, and its
-             HMMA (tensor-core) instructions counted in the library's
-             machine code by cuobjdump -sass, where the toolkit has it;
-             fails if an instantiation has none.
+   flash_build, rwkv_build — each instantiation of flash_attention
+             (float32 and bfloat16, dh 16 to 128) and of rwkv6_scan
+             (prefill and decode forms, float32 and bfloat16, hs 8 to 64):
+             registers and spills from ptxas -v, and its HMMA
+             (tensor-core) instructions counted in the library's machine
+             code by cuobjdump -sass, where the toolkit has it; fails if
+             a flash instantiation or an rwkv6_scan prefill one has none.
 3. kernels — every alloc_objective entry (fleet value+gradient, fleet
              value-only, single-problem) on the card at the five shapes the
              replay gives the fleet entries (B = 64 and T = 48, 4, 12 for
@@ -90,12 +92,18 @@ Phases, one JSON object per line:
              version (the chunked closed form, on the float32 values of the
              same inputs; rtol = atol = 1e-3 in float32, 2e-2 in bfloat16),
              every case with a nonzero bonus u and state s0: rwkv6-7b's
-             prefill shape (timed for the kernels line), its decode shape
-             (S = 1, chunk 1), a ragged S = 1056, decays in [0.02, 0.5]
-             (the clamp at e^-60 bites), head size 16 with chunk 16, and
+             prefill shape (timed for the kernels line; also the kernel's
+             and the plain version's rms distance from the chunked form in
+             float64), its decode shape (S = 1, chunk 1: the kernel's
+             decode form), a ragged S = 1056, decays in [0.02, 0.5] (the
+             clamp at e^-60 bites), head size 16 with chunk 16, and
              bfloat16; kernel and plain device ms over rotating input
-             copies, and the bound. PyTorch has no one call that computes
-             WKV, so there is no library time.
+             copies, and the bound: bytes at 3.35 TB/s or operations on
+             the kernel's route, whichever is larger (the prefill form's
+             products as 3xTF32, three TF32 products for each at
+             495 TFLOP/s, with the FP32-pipe figure at 67 TFLOP/s beside
+             it; the decode form forms no products). PyTorch has no one
+             call that computes WKV, so there is no library time.
 9. serve_rwkv — the third main path: rwkv6-7b at full width and depth (32
              layers, d_model 4096, float32, random weights from --seed,
              with u drawn from N(0, 0.5) and w_base spread over [-6, -1]
@@ -464,30 +472,42 @@ def flash_bound(B, S, H, G, dh, window, dtype) -> dict:
                                         F32_FLOPS_PER_S)["bound_ms"]}
 
 
-FLASH_KERNEL = re.compile(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+TYPE_NAMES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+# each kernel's instantiations: (mangled-name pattern, key of a match, how
+# many there are, which keys must hold tensor-core instructions)
+BUILDS = {
+    "flash_attention": (
+        re.compile(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
+        lambda m: f"{TYPE_NAMES[m.group(1)]}/dh{m.group(2)}", 8,
+        lambda key: True),
+    "rwkv6_scan": (
+        re.compile(r"rwkv6_(chunks|step)_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
+        lambda m: (f"{'prefill' if m.group(1) == 'chunks' else 'decode'}/"
+                   f"{TYPE_NAMES[m.group(2)]}/hs{m.group(3)}"), 16,
+        lambda key: key.startswith("prefill/")),
+}
 
 
-def flash_build_report(library) -> dict:
-    """Each flash_attention instantiation's registers and spills (ptxas -v)
-    and its HMMA (tensor-core) instructions in the library's machine code;
-    raises if an instantiation has none (where cuobjdump can tell)."""
-    from repro_torch.kernels.build import ptxas_report, sass_counts
+def build_report(kernel: str, library) -> dict:
+    """Each instantiation of ``kernel`` (a key of BUILDS) in ``library``:
+    registers and spills (ptxas -v) and HMMA (tensor-core) instructions in
+    the library's machine code. Raises unless the build log holds every
+    instantiation, or if one that must run on the tensor cores has no HMMA
+    (where cuobjdump can tell)."""
+    from repro_torch.kernels.build import (instantiation_report, ptxas_report,
+                                           sass_counts)
+    pattern, name, count, needs_hmma = BUILDS[kernel]
     hmma = sass_counts(library, "HMMA")
-    out = {}
-    for fn, rec in ptxas_report(library).items():
-        m = FLASH_KERNEL.search(fn)
-        if m:
-            dtype = "float32" if m.group(1) == "f" else "bfloat16"
-            out[f"{dtype}/dh{m.group(2)}"] = {
-                **rec, "hmma": None if hmma is None else hmma.get(fn, 0)}
-    if len(out) != 8:
-        raise AssertionError(f"flash_attention: expected 8 instantiations "
-                             f"in the build log, found {sorted(out)}")
-    if hmma is not None and not all(r["hmma"] for r in out.values()):
-        raise AssertionError(f"flash_attention: an instantiation without "
-                             f"tensor-core instructions: {out}")
-    return {"instantiations": dict(sorted(out.items())),
-            "sass_read": hmma is not None}
+    out = instantiation_report(ptxas_report(library), hmma, pattern, name)
+    if len(out) != count:
+        raise AssertionError(f"{kernel}: expected {count} instantiations in "
+                             f"the build log, found {sorted(out)}")
+    missing = [key for key, rec in out.items()
+               if hmma is not None and needs_hmma(key) and not rec["hmma"]]
+    if missing:
+        raise AssertionError(f"{kernel}: instantiations without tensor-core "
+                             f"instructions: {missing}")
+    return {"instantiations": out, "sass_read": hmma is not None}
 
 
 def decode_bound(B, H, G, dh, n_valid, S, itemsize, flops_per_s) -> dict:
@@ -612,17 +632,31 @@ def attention_checks(seed: int, dev):
     return checks, measured
 
 
-def rwkv_bound(B, S, H, hs, chunk, itemsize, flops_per_s) -> dict:
+def rwkv_bound(B, S, H, hs, chunk, itemsize) -> dict:
     """r, k, v, w read and y written once, u, s0 read and s_final written
-    once; per (b, h) and chunk of c real positions: 4 hs operations per
-    strictly lower (t, i) pair (the decayed r.k and att.v), 4 hs^2 + 4 hs
-    per position (r S_0, the state update, the bonus) and hs^2 (the decay of
-    S_0)."""
+    once. Operations per (b, h) and chunk of c real positions: the products,
+    4 hs per strictly lower (t, i) pair (the decayed r.k and att.v) and
+    4 hs^2 per position (r S_0 and the state update); besides them 4 hs per
+    position (the bonus) and hs^2 (the decay of S_0). The prefill form's
+    route is 3xTF32: three TF32 products for each product at the TF32 rate,
+    the rest at the float32 rate (the same work all on the FP32 pipes is
+    kept as ``fp32_pipe_bound_ms``). The decode form (S = 1) forms no
+    products: the float32 rate."""
     full, tail = divmod(S, chunk)
-    per = lambda c: 2 * hs * c * (c - 1) + 4 * c * hs * (hs + 1) + hs * hs
-    flops = B * H * (full * per(chunk) + (per(tail) if tail else 0))
+    count = lambda per: B * H * (full * per(chunk) + (per(tail) if tail
+                                                       else 0))
+    mm = count(lambda c: 2 * hs * c * (c - 1) + 4 * c * hs * hs)
+    rest = count(lambda c: 4 * c * hs + hs * hs)
     nbytes = itemsize * 5 * B * S * H * hs + 4 * (H * hs + 2 * B * H * hs * hs)
-    return bound(nbytes, flops, flops_per_s)
+    fp32 = bound(nbytes, mm + rest, F32_FLOPS_PER_S)
+    if S == 1:
+        return {**fp32, "route": "fp32"}
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * mm / TF32_FLOPS_PER_S + rest / F32_FLOPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": mm + rest, "route": "3xTF32",
+            "fp32_pipe_bound_ms": fp32["bound_ms"]}
 
 
 def rwkv_checks(seed: int, dev):
@@ -634,13 +668,12 @@ def rwkv_checks(seed: int, dev):
     from repro_torch.kernels.rwkv6_scan import ref as sref
 
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
-    rate = {"float32": F32_FLOPS_PER_S, "bfloat16": BF16_FLOPS_PER_S}
     measured_as = {"rwkv-prefill": "rwkv6_scan",
                    "rwkv-decode": "rwkv6_scan_decode"}
     checks, measured = [], {}
     for case, (B, S, H, hs, chunk, (lo, hi), dtype) in RWKV_CASES.items():
         dt = getattr(torch, dtype)
-        est = rwkv_bound(B, S, H, hs, chunk, dt.itemsize, rate[dtype])
+        est = rwkv_bound(B, S, H, hs, chunk, dt.itemsize)
 
         def inputs():
             rand = lambda *shape: torch.randn(shape, generator=gen,
@@ -1038,8 +1071,9 @@ def main() -> int:
                          or "smem" in ln]}
         for name, src in sources.items()}})
 
-    emit({"phase": "flash_build",
-          **flash_build_report(libs[sources["flash_attention"]])})
+    for phase, kernel in (("flash_build", "flash_attention"),
+                          ("rwkv_build", "rwkv6_scan")):
+        emit({"phase": phase, **build_report(kernel, libs[sources[kernel]])})
 
     # ---- inputs: the fleet's tick-0 problems, as the replay stacks them --
     catalog = make_cloud_catalog()

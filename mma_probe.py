@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Two facts about the tensor-core instructions flash_attention.cu is built
-on, measured on one NVIDIA GPU.
+"""Three facts about the tensor-core instructions flash_attention.cu and
+rwkv6_scan.cu are built on, measured on one NVIDIA GPU.
 
     python3 mma_probe.py [--out build/mma_probe.jsonl]
 
@@ -14,6 +14,11 @@ on, measured on one NVIDIA GPU.
    compared, counted by class of x (normal, zero or subnormal, inf or
    NaN), with the smallest pattern that differs. The run fails if any
    finite x rounds differently.
+3. What mma.sync TF32 does with a subnormal operand (rwkv6_scan's r_dec
+   falls below float32's normal range where the decay is strong): one
+   m16n8k8 product whose only nonzero A value is the subnormal 2^-130 and
+   whose B values are 2^100, against the exact 2^-30; reported, not held
+   to a limit (such terms are below 1e-9 of the scan's outputs).
 
 One JSON object per line, also written to --out; the last line names the
 card and its power limit. Without a CUDA device it exits 2.
@@ -82,6 +87,25 @@ __global__ void tf32_round_check(unsigned long long* count, uint32_t* first) {
     }
 }
 
+// one m16n8k8 TF32 product: A zero but a[0] of lane 0 (row 0, k 0) = a,
+// B all = b; d[0] of lane 0 (row 0, column 0) = a b if a is kept
+__global__ void tf32_subnormal(float a, float b, float* out) {
+  const uint32_t av = threadIdx.x == 0 ? __float_as_uint(a) : 0u;
+  const uint32_t bv = __float_as_uint(b);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(av), "r"(0u), "r"(0u), "r"(0u), "r"(bv), "r"(bv));
+  if (threadIdx.x == 0) out[0] = d[0];
+}
+
+extern "C" int tf32_subnormal_launch(float a, float b, float* out,
+                                     void* stream) {
+  tf32_subnormal<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out);
+  return cudaGetLastError();
+}
+
 extern "C" int mma_peak_launch(int kind, int blocks, int iters, float* out,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -146,6 +170,21 @@ def tf32_round_check(lib, torch) -> dict:
             for c, n, f in zip(CLASSES, count.tolist(), first.tolist())}
 
 
+def tf32_subnormal(lib, torch) -> dict:
+    """One mma.sync TF32 product of the subnormal 2^-130 and 2^100."""
+    fn = lib.tf32_subnormal_launch
+    fn.argtypes = [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, device="cuda")
+    a, b = 2.0 ** -130, 2.0 ** 100
+    if fn(a, b, out.data_ptr(), torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("tf32_subnormal: launch failed")
+    got = out.item()
+    return {"a": a, "b": b, "exact": a * b, "got": got,
+            "subnormal_kept": got == a * b, "flushed": got == 0.0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/mma_probe.jsonl")
@@ -173,6 +212,7 @@ def main() -> int:
     emit({"phase": "mma_peak", "tflops": mma_peak_tflops(lib, torch)})
     rounding = tf32_round_check(lib, torch)
     emit({"phase": "tf32_rounding", "classes": rounding})
+    emit({"phase": "tf32_subnormal", **tf32_subnormal(lib, torch)})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -6,8 +6,10 @@ for ``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root
 after a hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is reused. ``nvcc``'s output, with ``-Xptxas=-v``'s register
 and spill counts, is kept beside each library as ``<name>.log``;
-``ptxas_report`` reads those counts back per kernel, and ``sass_counts``
-counts an instruction in a library's machine code (``cuobjdump -sass``).
+``ptxas_report`` reads those counts back per kernel, ``sass_counts``
+counts an instruction in a library's machine code (``cuobjdump -sass``),
+and ``instantiation_report`` joins the two for one kernel's template
+instantiations.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 from functools import lru_cache
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -109,6 +111,22 @@ def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
 def ptxas_report(library: Path) -> Dict[str, Dict[str, int]]:
     """``parse_ptxas`` of the build log kept beside ``library``."""
     return parse_ptxas(Path(library).with_suffix(".log").read_text())
+
+
+def instantiation_report(ptxas: Dict[str, Dict[str, int]],
+                         hmma: Optional[Dict[str, int]], pattern: re.Pattern,
+                         name: Callable[[re.Match], str]) -> Dict[str, dict]:
+    """The kernels of ``ptxas`` (``parse_ptxas``'s output) whose mangled name
+    ``pattern`` matches, keyed by ``name(match)``: registers and spills, and
+    HMMA instructions from ``hmma`` (``parse_sass_counts``'s output; None
+    where the listing was not read)."""
+    out = {}
+    for fn, rec in ptxas.items():
+        m = pattern.search(fn)
+        if m:
+            out[name(m)] = {**rec,
+                            "hmma": None if hmma is None else hmma.get(fn, 0)}
+    return dict(sorted(out.items()))
 
 
 def parse_sass_counts(sass: str, opcode: str) -> Dict[str, int]:

@@ -5,8 +5,19 @@ On a CUDA tensor ``rwkv6_scan`` launches the kernel
 (``csrc/rwkv6_scan.cu``, built at first use) or raises; on a CPU tensor it
 runs the plain PyTorch version ``ref.rwkv6_scan_chunked``. Unlike the
 Pallas kernel (which asserts ``S % chunk == 0``) it takes any S: a ragged
-last chunk is padded with identity positions inside the kernel, as the
+chunk is padded with identity positions inside the kernel, as the
 reference model pads it.
+
+The kernel has two forms behind one C entry:
+
+- prefill (S > 1): one team of warps per (batch row, head) walks the
+  chunks in order with the state in registers; the chunk's four products
+  (r_dec k_dec^T over the lower half only, att v, r_dec S_0, k_tail^T v)
+  run on the tensor cores as 3xTF32, and the next chunk's tiles are
+  staged by cp.async while this one computes;
+- decode (S == 1, chunk cut to 1): the closed form at chunk 1, y =
+  r S_0 + (r.u.k) v and S' = exp(log w) S_0 + k v^T, with the state
+  streamed from device memory through registers and no products.
 
 ``LAUNCHES["rwkv6_scan"]`` counts the kernel's launches: raised by one
 where the kernel is launched and nowhere else.

@@ -5,9 +5,9 @@ route rounds it, against float64.
 The kernel splits each float32 operand x into big = cvt.rna.tf32.f32(x) and
 small = cvt.rna.tf32.f32(x - big) and forms each product as small.big +
 big.small + big.big in float32 (three mma.sync TF32 products, the small
-terms first). Here ``tf32_rna`` does that rounding in torch (10 mantissa
-bits, to nearest, ties away from zero), and the products of TF32 values,
-exact in float32, are summed by torch's float32 matmul. The reference's
+terms first). ``repro_torch.kernels.tf32`` does that rounding in torch (10
+mantissa bits, to nearest, ties away from zero), and the products of TF32
+values, exact in float32, are summed by torch's float32 matmul. The reference's
 tolerance for float32 attention is 2e-4 (tests/kernels/test_kernels.py:10);
 plain 1xTF32 (one product of the two bigs) is reported beside it:
 
@@ -22,35 +22,11 @@ from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.tf32 import (mm_1xtf32, mm_3xtf32, split,  # noqa: E402
+                                      tf32_rna)
+
 TOL = 2e-4          # tests/kernels/test_kernels.py:10-11
 S, DH = 128, 128    # the reduced attention: one head, causal
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 of float32 ``x``: its 13 low mantissa bits rounded
-    away, to nearest, ties away from zero (adding half a TF32 ulp to the
-    magnitude's bits and truncating)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    big = tf32_rna(x)
-    return big, tf32_rna(x - big)
-
-
-def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with every product small.big + big.small + big.big, in that
-    order, summed in float32."""
-    a_big, a_small = split(a)
-    b_big, b_small = split(b)
-    acc = a_small @ b_big
-    acc = acc + a_big @ b_small
-    return acc + a_big @ b_big
-
-
-def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return tf32_rna(a) @ tf32_rna(b)
 
 
 def attention(q, k, v, mm):

@@ -71,3 +71,86 @@ def test_library_is_named_by_its_source(tmp_path):
     assert build.library_path(src) == first
     src.write_text("// two\n")
     assert build.library_path(src) != first
+
+
+def _rwkv_name(form, dtype, hs):
+    t = "f" if dtype == "float32" else "13__nv_bfloat16"
+    return (f"_ZN75_GLOBAL__N__a1b2_19rwkv6_{form}_kernelI{t}Li{hs}EEEvPKT_"
+            f"S3_S3_S3_PKfS5_PS1_Pfiiiii")
+
+
+def _rwkv_logs(no_hmma=()):
+    """A build log and a SASS listing of the 16 rwkv6_scan instantiations;
+    the prefill (chunks) ones hold HMMA except those in ``no_hmma``."""
+    log, sass = [], ["\tcode for sm_90a"]
+    for form in ("chunks", "step"):
+        for dtype in ("float32", "bfloat16"):
+            for hs in (8, 16, 32, 64):
+                fn = _rwkv_name(form, dtype, hs)
+                log += [f"ptxas info    : Compiling entry function '{fn}' "
+                        f"for 'sm_90a'",
+                        f"ptxas info    : Function properties for {fn}",
+                        "    0 bytes stack frame, 0 bytes spill stores, "
+                        "0 bytes spill loads",
+                        f"ptxas info    : Used {hs + 40} registers"]
+                sass.append(f"\t\tFunction : {fn}")
+                if form == "chunks" and (dtype, hs) not in no_hmma:
+                    sass.append("        /*0090*/                   HMMA.1688"
+                                ".F32.TF32 R24, R4, R12, R24 ;")
+                sass.append("        /*00a0*/                   EXIT ;")
+    return "\n".join(log), "\n".join(sass)
+
+
+def test_instantiation_report_names_each_instantiation():
+    import re
+    log, sass = _rwkv_logs()
+    got = build.instantiation_report(
+        build.parse_ptxas(log), build.parse_sass_counts(sass, "HMMA"),
+        re.compile(r"rwkv6_(chunks|step)_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
+        lambda m: f"{m.group(1)}/{m.group(2)}/{m.group(3)}")
+    assert len(got) == 16 and list(got) == sorted(got)
+    assert got["chunks/f/64"] == {"stack_frame": 0, "spill_stores": 0,
+                                  "spill_loads": 0, "registers": 104,
+                                  "hmma": 1}
+    assert got["step/13__nv_bfloat16/8"]["hmma"] == 0
+    unread = build.instantiation_report(build.parse_ptxas(log), None,
+                                        re.compile(r"step_kernelIfLi8E"),
+                                        lambda m: m.group(0))
+    assert unread == {"step_kernelIfLi8E": {
+        "stack_frame": 0, "spill_stores": 0, "spill_loads": 0,
+        "registers": 48, "hmma": None}}
+
+
+@pytest.fixture
+def chip_smoke(monkeypatch):
+    import sys
+    from pathlib import Path
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as module
+    yield module
+    sys.modules.pop("chip_smoke", None)
+
+
+def test_rwkv_build_report_gates_prefill_on_tensor_cores(chip_smoke,
+                                                          monkeypatch,
+                                                          tmp_path):
+    lib = tmp_path / "rwkv6_scan_0123.so"
+
+    def report(no_hmma=()):
+        log, sass = _rwkv_logs(no_hmma)
+        lib.with_suffix(".log").write_text(log)
+        monkeypatch.setattr(build, "sass_counts",
+                            lambda library, opcode:
+                            build.parse_sass_counts(sass, opcode))
+        return chip_smoke.build_report("rwkv6_scan", lib)
+
+    got = report()
+    assert got["sass_read"] and len(got["instantiations"]) == 16
+    assert got["instantiations"]["prefill/float32/hs64"]["hmma"] == 1
+    assert got["instantiations"]["decode/bfloat16/hs16"]["hmma"] == 0
+    with pytest.raises(AssertionError, match="prefill/float32/hs16"):
+        report(no_hmma={("float32", 16)})
+    lib.with_suffix(".log").write_text(_rwkv_logs()[0].split(
+        "ptxas info    : Compiling entry function")[0])
+    with pytest.raises(AssertionError, match="expected 16"):
+        chip_smoke.build_report("rwkv6_scan", lib)

@@ -62,6 +62,75 @@ def test_kernel_matches_plain(cuda, B, S, H, hs, chunk, w_lo, w_hi, dtype):
                                    atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hs", [8, 16, 32, 64])
+def test_decode_form_matches_plain(cuda, hs, dtype):
+    """S = 1 runs the decode form (the wrapper cuts chunk to 1)."""
+    gen = torch.Generator(device=cuda).manual_seed(hs)
+    r, k, v, w, u, s0 = _inputs(gen, 5, 1, 6, hs, dtype, cuda)
+    ops.reset_launches()
+    y, sf = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=64)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rwkv6_scan"] == 1
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    yr, sr = ref.rwkv6_scan_chunked(r.float(), k.float(), v.float(),
+                                    w.float(), u, s0, 1)
+    for got, want in ((y, yr), (sf, sr)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.cpu().numpy(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("hs", [16, 64])
+@pytest.mark.parametrize("chunk,S", [(1, 37), (7, 100), (17, 150),
+                                     (48, 200)])
+def test_chunks_with_a_ragged_end(cuda, chunk, S, hs):
+    """Chunks that are not a multiple of 16 (padded inside the tile) at an
+    S that is not a multiple of the chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(chunk * S + hs)
+    r, k, v, w, u, s0 = _inputs(gen, 2, S, 3, hs, torch.float32, cuda,
+                                0.5, 0.999)
+    y, sf = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=chunk)
+    yr, sr = ref.rwkv6_scan_chunked(r, k, v, w, u, s0, chunk)
+    for got, want in ((y, yr), (sf, sr)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-3)
+
+
+def test_prefill_error_against_float64_is_near_the_plain_versions(cuda):
+    """At rwkv6-7b's prefill shape the kernel (3xTF32 products) lies no
+    farther from the chunked form in float64, by rms, than twice the plain
+    version (float32 products) does."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    r, k, v, w, u, s0 = _inputs(gen, 8, 1024, 64, 64, torch.float32, cuda)
+    y, _ = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=64)
+    yr, _ = ref.rwkv6_scan_chunked(r, k, v, w, u, s0, 64)
+    y64, _ = ref.rwkv6_scan_chunked(*(a.double() for a in (r, k, v, w, u,
+                                                            s0)), 64,
+                                    compute_dtype=torch.float64)
+    rms = lambda t: t.pow(2).mean().sqrt().item()
+    assert rms(y.double() - y64) <= 2 * rms(yr.double() - y64)
+
+
+@pytest.mark.parametrize("S", [1, 130])
+def test_s0_is_not_written(cuda, S):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    r, k, v, w, u, s0 = _inputs(gen, 3, S, 4, 64, torch.float32, cuda)
+    kept = s0.clone()
+    _, sf = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(s0, kept) and not torch.equal(sf, s0)
+
+
+def test_a_decode_row_does_not_depend_on_its_batch(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    r, k, v, w, u, s0 = _inputs(gen, 6, 1, 8, 64, torch.float32, cuda)
+    y, sf = ops.rwkv6_scan(r, k, v, w, u, s0)
+    one = [a[4:5].contiguous() for a in (r, k, v, w)]
+    y1, sf1 = ops.rwkv6_scan(*one, u, s0[4:5].contiguous())
+    assert torch.equal(y[4:5], y1) and torch.equal(sf[4:5], sf1)
+
+
 def test_a_row_does_not_depend_on_its_batch(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     r, k, v, w, u, s0 = _inputs(gen, 4, 130, 4, 32, torch.float32, cuda)
