@@ -21,7 +21,9 @@ Phases, one JSON object per line:
              value-only, single-problem) on the card at the five shapes the
              replay gives the fleet entries (B = 64 and T = 48, 4, 12 for
              the value form, T = 4, 1 for value+gradient), each on the
-             padded bucket and on the unpadded n = 1880, against its plain
+             padded bucket and on the unpadded n = 1880, and the
+             single-problem entry at S = 128 and at the scenario
+             pipeline's S = 72 (6 starts x 12 ladder rungs), against its plain
              PyTorch version on the same inputs (rtol = atol = 1e-4); at
              the padded shapes the kernel's and the plain version's device
              time per call (calls back to back in a CUDA graph, between
@@ -34,14 +36,20 @@ Phases, one JSON object per line:
              of one launch in a CUDA graph.
 4. replay  — the port's main path through its entry point:
              ``replay_fleet(make_cloud_catalog(), tenants,
-             replay_mode="batched", run_ca_baseline=False)`` with 64 tenants
-             over the full 1880-type catalog, 4 ticks (1 cold solve_fleet,
-             3 warm solve_fleet_step), launch counts zeroed just before and
-             read just after, and the alloc_objective launches also counted
-             by entry and T; then the same replay with hot_loop="ref" (the
-             plain PyTorch eq. (1)) on the card, which the kernel replay
-             must match to the solver's tolerance (per tenant rtol 0.05,
-             fleet aggregate 2e-2, identical per-tick satisfaction flags).
+             replay_mode="batched", run_ca_baseline=True,
+             ca_engine="vectorized")`` with 64 tenants over the full
+             1880-type catalog, 4 ticks (1 cold solve_fleet, 3 warm
+             solve_fleet_step), launch counts zeroed just before and read
+             just after, and the alloc_objective launches also counted by
+             entry and T; the Cluster-Autoscaler baseline on the host, timed
+             apart (``ca_s``), with its cost integral, SLO-violation ticks
+             and the optimizer's savings against it; then the same replay
+             with hot_loop="ref" (the plain PyTorch eq. (1)) on the card,
+             which the kernel replay must match to the solver's tolerance
+             (per tenant rtol 0.05, fleet aggregate 2e-2, identical per-tick
+             satisfaction flags), and the CA baseline once more through its
+             sequential per-tenant oracle, whose counts and metrics must
+             equal the vectorized engine's for every tenant.
    replay_scored — the kernel replay once more, every alloc_objective
              launch also evaluated by the plain version and by eq. (1) in
              float64: the largest error of each against float64, and of
@@ -56,7 +64,20 @@ Phases, one JSON object per line:
 5. profile — torch.profiler over one warm tick of the same fleet: device
              busy share, the kernels that take the time, and the device
              time and launches of the alloc_objective kernel.
-6. attention — the flash_attention and decode_attention kernels on the card
+6. scenarios — the paper's one-shot comparison, the main path of
+             alloc_objective's single-problem form: ``optimize`` (6 starts,
+             seed 0) on the five scenarios of ``build_scenarios`` over the
+             full catalog, once with the kernel and once plain
+             (use_kernel=False), launch counts zeroed just before each run
+             and read just after, against the Cluster-Autoscaler's median
+             cost over seeds 0-2. It fails unless every allocation is
+             integral and satisfies its demand, the kernel run's eq. (1) at
+             its counts lies within 1e-4 of the plain run's (or both commit
+             the same counts), the kernel run launched the single-problem
+             form and the plain run nothing, each optimizer cost is at most
+             1.05 x the CA's and the mean savings lie in 30-85%
+             (tests/core/test_scenarios_api.py).
+7. attention — the flash_attention and decode_attention kernels on the card
              against their plain PyTorch versions (on the float32 values of
              the same inputs; rtol = atol = 2e-4 in float32, 2e-2 in
              bfloat16), at qwen1.5-4b's serving shapes and at shapes that
@@ -73,7 +94,7 @@ Phases, one JSON object per line:
              product, with the FP32-pipe figure at 67 TFLOP/s beside it;
              bfloat16 at 989 TFLOP/s; decode_attention in float32 at
              67 TFLOP/s).
-7. serve   — the second main path: qwen1.5-4b at full width and depth
+8. serve   — the second main path: qwen1.5-4b at full width and depth
              (40 layers, d_model 2560, float32, random weights from --seed)
              through ``init_model``, ``make_prefill_step`` and
              ``make_decode_step``: 8 prompts of 1024 tokens, then 32
@@ -88,7 +109,7 @@ Phases, one JSON object per line:
              kernels of one decode step and of one prefill (torch.profiler,
              each window opened by a primer of spin kernels that the sums
              leave out).
-8. rwkv    — the rwkv6_scan kernel on the card against its plain PyTorch
+9. rwkv    — the rwkv6_scan kernel on the card against its plain PyTorch
              version (the chunked closed form, on the float32 values of the
              same inputs; rtol = atol = 1e-3 in float32, 2e-2 in bfloat16),
              every case with a nonzero bonus u and state s0: rwkv6-7b's
@@ -104,11 +125,11 @@ Phases, one JSON object per line:
              495 TFLOP/s, with the FP32-pipe figure at 67 TFLOP/s beside
              it; the decode form forms no products). PyTorch has no one
              call that computes WKV, so there is no library time.
-9. serve_rwkv — the third main path: rwkv6-7b at full width and depth (32
+10. serve_rwkv — the third main path: rwkv6-7b at full width and depth (32
              layers, d_model 4096, float32, random weights from --seed,
              with u drawn from N(0, 0.5) and w_base spread over [-6, -1]
              across channels) through the same step functions and prompts
-             as phase 7, after phase 7's weights are freed: one rwkv6_scan
+             as phase 8, after phase 8's weights are freed: one rwkv6_scan
              launch per layer per prefill and per decode step, no other
              kernel. The random model moves its own logits past 2e-3
              under float32-sized perturbations, so end to end the logits
@@ -158,6 +179,12 @@ RWKV_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 SERVE_ARCH = "qwen1.5-4b"
 RWKV_ARCH = "rwkv6-7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
+# the scenario comparison as tests/core/test_scenarios_api.py makes it:
+# optimize's starts (:14), the CA's median over seeds 0-2 (:15-18),
+# optimizer cost <= 1.05 x the CA's (:36), mean savings in percent (:54)
+SCENARIO_STARTS, CA_SEEDS, CA_SLACK = 6, 3, 1.05
+SAVINGS_BAND = (30.0, 85.0)
+FUN_RTOL = 1e-4               # kernel vs plain optimize: eq. (1) at the counts
 REPLACES = {
     "alloc_objective_fleet": "src/repro/kernels/alloc_objective/kernel.py:136",
     "alloc_objective_fleet_value":
@@ -1011,6 +1038,79 @@ def serve(seed: int, dev, arch: str, phase: str):
     return rec, prefill_launches, decode_launches
 
 
+def scenario_checks(dev, ops) -> dict:
+    """The paper's one-shot comparison on the card: ``optimize`` on s1-s5
+    over the full catalog, with the alloc_objective kernel and plain,
+    against the Cluster-Autoscaler's median cost over seeds 0-2; launch
+    counts zeroed just before each run and read just after. Raises unless
+    every allocation is integral and satisfies its demand, the kernel's
+    eq. (1) at its counts lies within FUN_RTOL of the plain run's (or the
+    two commit the same counts), the kernel run launched the single-problem
+    form and the plain run nothing, each optimizer cost is at most CA_SLACK
+    x the CA median and the mean savings lie in SAVINGS_BAND."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (build_scenarios, evaluate,
+                                  make_cloud_catalog, optimize,
+                                  simulate_cluster_autoscaler)
+    catalog = make_cloud_catalog()
+    rows = []
+    total = collections.Counter()
+    for sc in build_scenarios(catalog):
+        runs = {}
+        for who, use_kernel in (("kernel", True), ("plain", False)):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            res = optimize(catalog, sc, n_starts=SCENARIO_STARTS, seed=0,
+                           use_kernel=use_kernel, device=dev)
+            torch.cuda.synchronize()
+            runs[who] = (res, time.perf_counter() - s0, dict(ops.LAUNCHES))
+        (kern, k_s, k_l), (plain, p_s, p_l) = runs["kernel"], runs["plain"]
+        total.update(k_l)
+        s0 = time.perf_counter()
+        ca = float(np.median([evaluate(catalog, simulate_cluster_autoscaler(
+            catalog, sc.pools, sc.demand, seed=sd).counts,
+            sc.demand).total_cost for sd in range(CA_SEEDS)]))
+        ca_s = time.perf_counter() - s0
+        cost = kern.metrics.total_cost
+        row = {"scenario": sc.name, "optimizer_cost": cost,
+               "plain_cost": plain.metrics.total_cost, "ca_cost": ca,
+               "savings_pct": 100.0 * (ca - cost) / ca,
+               "fun": kern.fun, "plain_fun": plain.fun,
+               "fun_rel_diff_vs_plain": abs(kern.fun - plain.fun)
+               / abs(plain.fun),
+               "counts_equal": bool(np.array_equal(kern.counts,
+                                                   plain.counts)),
+               "satisfied": [kern.metrics.satisfied,
+                             plain.metrics.satisfied],
+               "integral": bool(all(np.array_equal(r.counts,
+                                                   np.round(r.counts))
+                                    for r in (kern, plain))),
+               "wall_s": k_s, "plain_wall_s": p_s, "ca_s": ca_s,
+               "launches": k_l, "plain_launches": p_l}
+        rows.append(row)
+        if not (all(row["satisfied"]) and row["integral"]):
+            raise AssertionError(f"{sc.name}: an allocation is not integral "
+                                 f"or misses the demand: {row}")
+        if not (row["counts_equal"]
+                or row["fun_rel_diff_vs_plain"] <= FUN_RTOL):
+            raise AssertionError(f"{sc.name}: the kernel run's eq. (1) "
+                                 f"disagrees with the plain run's: {row}")
+        if (k_l["alloc_objective"] == 0 or k_l["alloc_objective_fleet"]
+                or k_l["alloc_objective_fleet_value"] or any(p_l.values())):
+            raise AssertionError(f"{sc.name}: launches {k_l}, plain {p_l}")
+        if not cost <= CA_SLACK * ca:
+            raise AssertionError(f"{sc.name}: optimizer ${cost:.4f} against "
+                                 f"the CA's ${ca:.4f}")
+    mean = float(np.mean([r["savings_pct"] for r in rows]))
+    if not SAVINGS_BAND[0] <= mean <= SAVINGS_BAND[1]:
+        raise AssertionError(f"mean savings {mean:.1f}% outside "
+                             f"{SAVINGS_BAND}")
+    return {"n": catalog.n, "n_starts": SCENARIO_STARTS, "scenarios": rows,
+            "mean_savings_pct": mean, "launches": dict(total)}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1153,30 +1253,32 @@ def main() -> int:
                        plan=plan._asdict())
             measured.setdefault(name, rec)
         checks.append(rec)
-    # the single-problem entry: S = 128 starts of tenant 0 (n = 1880)
+    # the single-problem entry on tenant 0 (n = 1880): S = 128 points, then
+    # the scenario pipeline's ladder, 6 starts x L rungs (the kernels line's)
     single = tenant_problem(batch, 0)
-    S = 128
-    Xs = (2.0 * torch.rand((S, single.n), generator=gen, device=dev)
-          * single.mask).contiguous()
-    f, g = ops.batched_value_and_grad(single, Xs)
-    fr, gr = ref.alloc_objective_ref(Xs, *plain_args(single))
-    rec = compare("alloc_objective", torch.cat([f, g.flatten()]),
-                  torch.cat([fr, gr.flatten()]))
-    bound_ms, bound_by, nbytes, flops = kernel_bound(1, S, single.n, m_pad,
-                                                     p_pad, True)
-    scal = ops._single_scalars(single)
-    rec.update(name="alloc_objective",
-               shape={"S": S, "n": single.n, "m": m_pad, "p": p_pad},
-               **timings(lambda: ops.batched_value_and_grad(single, Xs),
-                         lambda: ref.alloc_objective_ref(
-                             Xs, *plain_args(single)),
-                         lambda: ops._launch(
-                             "alloc_objective", Xs[None], single.K[None],
-                             single.E[None], single.c[None], single.d[None],
-                             scal, True)),
-               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+    for S in (128, SCENARIO_STARTS * L):
+        Xs = (2.0 * torch.rand((S, single.n), generator=gen, device=dev)
+              * single.mask).contiguous()
+        f, g = ops.batched_value_and_grad(single, Xs)
+        fr, gr = ref.alloc_objective_ref(Xs, *plain_args(single))
+        rec = compare("alloc_objective", torch.cat([f, g.flatten()]),
+                      torch.cat([fr, gr.flatten()]))
+        bound_ms, bound_by, nbytes, flops = kernel_bound(1, S, single.n,
+                                                         m_pad, p_pad, True)
+        scal = ops._single_scalars(single)
+        rec.update(name="alloc_objective",
+                   shape={"S": S, "n": single.n, "m": m_pad, "p": p_pad},
+                   **timings(lambda: ops.batched_value_and_grad(single, Xs),
+                             lambda: ref.alloc_objective_ref(
+                                 Xs, *plain_args(single)),
+                             lambda: ops._launch(
+                                 "alloc_objective", Xs[None], single.K[None],
+                                 single.E[None], single.c[None],
+                                 single.d[None], scal, True)),
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   flops=flops)
+        checks.append(rec)
     measured["alloc_objective"] = rec
-    checks.append(rec)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "rtol": RTOL, "atol": ATOL, "launch_floor_ms": launch_floor_ms,
           "checks": checks})
@@ -1198,6 +1300,17 @@ def main() -> int:
 
     replay_mod.solve_fleet = timed(replay_mod.solve_fleet, "cold")
     replay_mod.solve_fleet_step = timed(replay_mod.solve_fleet_step, "warm")
+    # the CA baseline's host time, kept apart from the ticks'
+    ca_log = []
+    ca_fleet = replay_mod._replay_ca_fleet
+
+    def timed_ca(*a, **kw):
+        s0 = time.perf_counter()
+        out = ca_fleet(*a, **kw)
+        ca_log.append(time.perf_counter() - s0)
+        return out
+
+    replay_mod._replay_ca_fleet = timed_ca
     # the kernel's launches by entry and T (rows per problem)
     by_shape = collections.Counter()
     launch_fn = ops._launch
@@ -1211,31 +1324,40 @@ def main() -> int:
 
     def run(hot_loop):
         solve_log.clear()
+        ca_log.clear()
         by_shape.clear()
         for kernel_ops in (ops, fops, dops, sops):
             kernel_ops.reset_launches()
         torch.cuda.synchronize()
         s0 = time.perf_counter()
         out = replay_fleet(catalog, tenants, replay_mode="batched",
-                           run_ca_baseline=False, hot_loop=hot_loop)
+                           run_ca_baseline=True, ca_engine="vectorized",
+                           hot_loop=hot_loop)
         torch.cuda.synchronize()
         wall = time.perf_counter() - s0
         if any({**fops.LAUNCHES, **dops.LAUNCHES, **sops.LAUNCHES}.values()):
             raise AssertionError("the replay launched a model's kernels")
-        return (out, wall, dict(ops.LAUNCHES), list(solve_log),
+        return (out, wall, sum(ca_log), dict(ops.LAUNCHES), list(solve_log),
                 dict(sorted(by_shape.items())))
 
-    def summary(out, wall, launches, solves, launches_by_shape):
+    def summary(out, wall, ca_s, launches, solves, launches_by_shape):
         sat = np.asarray([[s.metrics.satisfied for s in r.steps]
                           for r in out.tenants])
         counts = np.stack([s.counts for r in out.tenants for s in r.steps])
         if not (np.isfinite(counts).all() and (counts >= 0).all()
                 and np.array_equal(counts, np.round(counts))):
             raise AssertionError("replay committed non-integral counts")
-        return {"wall_s": wall, "ticks": args.ticks,
+        m = out.metrics
+        return {"wall_s": wall, "ticks": args.ticks, "ca_s": ca_s,
                 "tick_solves": solves,
-                "host_s_per_tick": (wall - sum(s["seconds"] for s in solves))
+                "host_s_per_tick": (wall - ca_s
+                                    - sum(s["seconds"] for s in solves))
                 / args.ticks,
+                "ca_cost_integral": m.baseline_cost_integral,
+                "cost_savings_vs_baseline_pct":
+                    m.cost_savings_vs_baseline_pct,
+                "ca_slo_violation_ticks": sum(t.slo_violation_ticks
+                                              for t in m.baseline),
                 "launches": launches,
                 "launches_by_shape": launches_by_shape,
                 "feasible_tenants": int(sat.all(1).sum()),
@@ -1248,15 +1370,27 @@ def main() -> int:
     t0 = time.perf_counter()
     k_out, *k_rest = run("kernel")
     k_sum, k_sat = summary(k_out, *k_rest)
-    main_launches = k_rest[1]
+    main_launches = k_rest[2]
     for name in ("alloc_objective_fleet", "alloc_objective_fleet_value"):
         if main_launches[name] == 0:
             raise AssertionError(f"the replay never launched {name}")
     p_out, *p_rest = run("ref")
     p_sum, p_sat = summary(p_out, *p_rest)
     ops._launch = launch_fn
-    if any(p_rest[1].values()):
-        raise AssertionError(f"the plain replay launched kernels: {p_rest[1]}")
+    if any(p_rest[2].values()):
+        raise AssertionError(f"the plain replay launched kernels: {p_rest[2]}")
+    # the CA baseline once more through its sequential per-tenant oracle,
+    # the path of replay_fleet(ca_engine="sequential")
+    s0 = time.perf_counter()
+    ca_seq = [replay_mod._ca_baseline(catalog, spec, "random", "wave")
+              for spec in tenants]
+    k_sum["ca_sequential_s"] = time.perf_counter() - s0
+    k_sum["ca_engines_equal"] = all(
+        r.ca_metrics == m and np.array_equal(r.ca_counts, c)
+        for r, (m, c) in zip(k_out.tenants, ca_seq))
+    if not k_sum["ca_engines_equal"]:
+        raise AssertionError("the vectorized CA baseline disagrees with its "
+                             "sequential oracle")
     k_cost = np.asarray([r.metrics.cost_integral for r in k_out.tenants])
     p_cost = np.asarray([r.metrics.cost_integral for r in p_out.tenants])
     rel = np.abs(k_cost - p_cost) / np.maximum(np.abs(p_cost), 1e-12)
@@ -1318,6 +1452,11 @@ def main() -> int:
     emit({"phase": "profile", "what": "one warm solve_fleet_step",
           "iters_max": int(res[0].iters.max()), **prof})
 
+    # ---- scenarios: the paper's one-shot optimizer against the CA --------
+    t0 = time.perf_counter()
+    scen = scenario_checks(dev, ops)
+    emit({"phase": "scenarios", "seconds": time.perf_counter() - t0, **scen})
+
     # ---- attention kernels ---------------------------------------------
     t0 = time.perf_counter()
     attn_checks, attn_measured = attention_checks(args.seed, dev)
@@ -1358,7 +1497,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/alloc_objective/csrc/"
                       "alloc_objective.cu",
-            "replaces": REPLACES[name], "launches": main_launches[name],
+            "replaces": REPLACES[name],
+            "launches": (scen["launches"][name] if name == "alloc_objective"
+                         else main_launches[name]),
             "max_abs_err": max(c["max_abs_err"] for c in checks
                                if c["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

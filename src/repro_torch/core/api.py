@@ -1,18 +1,42 @@
-"""Problem construction from a raw demand vector — ``problem_from_demand``
-of ``repro.core.api``. The one-shot ``optimize`` pipeline (multistart and
-branch-and-bound) is not ported yet.
+"""High-level allocation pipeline — port of ``repro.core.api``:
+scenario -> problem -> multistart relaxed solves -> greedy rounding ->
+metrics, the "optimization approach" column of the paper's comparison
+methodology (§IV.B.2). Branch-and-bound is not ported yet.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from . import objective as obj
 from .catalog import Catalog
+from .metrics import AllocationMetrics, evaluate
+from .multistart import multistart_solve
 from .problem import AllocationProblem, PenaltyParams
+from .scenarios import Scenario
+from .solver import SolverConfig
 from .terms import NOT_PORTED
+
+
+@dataclass
+class OptimizeResult:
+    """One-shot pipeline output: the deployed allocation and its provenance.
+
+    ``counts`` is the integer allocation (float array of whole numbers),
+    ``relaxed`` the best continuous solution, ``fun`` the eq. (1) objective
+    at ``counts`` (solver units), ``metrics`` the raw-unit snapshot
+    evaluation, and ``used_bnb`` whether branch-and-bound ran (never, until
+    it is ported)."""
+
+    counts: np.ndarray
+    relaxed: np.ndarray
+    metrics: AllocationMetrics
+    fun: float
+    used_bnb: bool
 
 
 def problem_from_demand(catalog: Catalog, demand: np.ndarray,
@@ -56,3 +80,43 @@ def problem_from_demand(catalog: Catalog, demand: np.ndarray,
         prob = prob._replace(mask=prob.mask * keep_t, ub=prob.ub * keep_t,
                              lb=prob.lb * keep_t)
     return prob
+
+
+def problem_from_scenario(catalog: Catalog, scenario: Scenario,
+                          params: Optional[PenaltyParams] = None,
+                          normalize: bool = True,
+                          device: DeviceLike = None) -> AllocationProblem:
+    """``problem_from_demand`` with the scenario's approved-type list and
+    existing deployment applied (paper §IV.B scenario setups)."""
+    return problem_from_demand(catalog, scenario.demand, params=params,
+                               allowed_idx=scenario.allowed_idx,
+                               existing=scenario.existing,
+                               normalize=normalize, device=device)
+
+
+def optimize(catalog: Catalog, scenario: Scenario,
+             params: Optional[PenaltyParams] = None,
+             n_starts: int = 8, seed: int = 0,
+             use_bnb: bool = False, bnb_nodes: int = 24,
+             cfg: Optional[SolverConfig] = None,
+             use_kernel: bool = True,
+             device: DeviceLike = None) -> OptimizeResult:
+    """The paper's "optimization approach" for one scenario: problem
+    construction -> multistart relaxed solves -> greedy rounding (every
+    start; the best feasible integer merit wins) -> raw-unit metrics.
+    ``use_kernel`` (default) evaluates eq. (1) with the CUDA kernel on the
+    card; False runs the plain PyTorch version. ``use_bnb=True`` raises:
+    branch-and-bound is not ported yet."""
+    if use_bnb:
+        raise NotImplementedError("branch-and-bound is not ported yet")
+    prob = problem_from_scenario(catalog, scenario, params,
+                                 device=resolve_device(device))
+    ms = multistart_solve(prob, n_starts=n_starts, seed=seed, cfg=cfg,
+                          use_kernel=use_kernel)
+    fun = float(obj.objective(prob, ms.x_int, use_kernel))
+    x_int = ms.x_int.cpu().numpy()
+    return OptimizeResult(
+        counts=x_int.astype(np.float64),
+        relaxed=ms.best.x.cpu().numpy().astype(np.float64),
+        metrics=evaluate(catalog, x_int, scenario.demand),
+        fun=fun, used_bnb=False)

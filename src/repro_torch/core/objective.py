@@ -8,6 +8,11 @@ launch for all points); on a CPU tensor they are the registry sum of
 ``repro_torch.core.terms``, as in the reference. ``use_kernel=False`` asks
 for the registry sum on any device: the plain path a run can be compared
 with, never a fallback.
+
+The barrier and penalty terms are written once, for single and stacked
+problems alike: the single-problem relaxation (``core.solver``) adds them
+to ``objective`` in ``composite``, and the fleet solver adds them to its
+kernel's values through ``barrier_or_penalty`` and its gradient.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 
 from ..kernels.alloc_objective import ops
 from . import terms as _terms
-from .problem import AllocationProblem, is_stacked, lane, matvec
+from .problem import AllocationProblem, is_stacked, lane, matvec, rmatvec
 
 
 def _kernel_route(x: torch.Tensor, use_kernel: bool) -> bool:
@@ -81,6 +86,97 @@ def constraint_residuals(prob: AllocationProblem, x: torch.Tensor):
     Kx = matvec(prob, prob.K, x)
     return (Kx - lane(prob, prob.d - prob.mu, Kx),
             lane(prob, prob.d + prob.g, Kx) - Kx)
+
+
+def _violation(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return ((torch.clamp(-lo, min=0.0) ** 2).sum(-1)
+            + (torch.clamp(-hi, min=0.0) ** 2).sum(-1))
+
+
+def _barrier_value(lo: torch.Tensor, hi: torch.Tensor, t) -> torch.Tensor:
+    safe = (lo > 0).all(-1) & (hi > 0).all(-1)
+    one = torch.ones_like(lo)
+    val = -(1.0 / t) * (torch.log(torch.where(lo > 0, lo, one)).sum(-1)
+                        + torch.log(torch.where(hi > 0, hi, one)).sum(-1))
+    return torch.where(safe, val, torch.full_like(val, float("inf")))
+
+
+def _barrier_grad(prob, lo, hi, t) -> torch.Tensor:
+    lo = torch.clamp(lo, min=1e-9)
+    hi = torch.clamp(hi, min=1e-9)
+    return (1.0 / t) * (rmatvec(prob, prob.K, 1.0 / hi)
+                        - rmatvec(prob, prob.K, 1.0 / lo))
+
+
+def _penalty_grad(prob, lo, hi, w) -> torch.Tensor:
+    return w * 2.0 * (rmatvec(prob, prob.K, torch.clamp(-hi, min=0.0))
+                      - rmatvec(prob, prob.K, torch.clamp(-lo, min=0.0)))
+
+
+def constraint_violation(prob: AllocationProblem, x: torch.Tensor
+                         ) -> torch.Tensor:
+    """Squared violation of the two-sided band (0 iff band-feasible)."""
+    return _violation(*constraint_residuals(prob, x))
+
+
+def barrier(prob: AllocationProblem, x: torch.Tensor, t) -> torch.Tensor:
+    """Log-barrier for the two-sided Kx constraint; +inf outside the strict
+    interior (the line search rejects such points)."""
+    return _barrier_value(*constraint_residuals(prob, x), t)
+
+
+def barrier_grad(prob: AllocationProblem, x: torch.Tensor, t
+                 ) -> torch.Tensor:
+    """Gradient of the log-barrier (residuals clamped away from 0)."""
+    return _barrier_grad(prob, *constraint_residuals(prob, x), t)
+
+
+def penalty(prob: AllocationProblem, x: torch.Tensor, w) -> torch.Tensor:
+    """Smooth quadratic penalty, used when no strict interior exists."""
+    return w * constraint_violation(prob, x)
+
+
+def penalty_grad(prob: AllocationProblem, x: torch.Tensor, w
+                 ) -> torch.Tensor:
+    """Gradient of the quadratic penalty."""
+    return _penalty_grad(prob, *constraint_residuals(prob, x), w)
+
+
+def barrier_or_penalty(prob: AllocationProblem, x: torch.Tensor, barrier_t,
+                       penalty_w, use_barrier: torch.Tensor) -> torch.Tensor:
+    """Per point, the barrier where ``use_barrier`` (a bool broadcastable
+    against x.shape[:-1]) holds, else the penalty; one K@x for both."""
+    lo, hi = constraint_residuals(prob, x)
+    return torch.where(use_barrier, _barrier_value(lo, hi, barrier_t),
+                       penalty_w * _violation(lo, hi))
+
+
+def barrier_or_penalty_grad(prob: AllocationProblem, x: torch.Tensor,
+                            barrier_t, penalty_w, use_barrier: torch.Tensor
+                            ) -> torch.Tensor:
+    """Gradient of :func:`barrier_or_penalty`, shaped like x."""
+    lo, hi = constraint_residuals(prob, x)
+    return torch.where(use_barrier[..., None],
+                       _barrier_grad(prob, lo, hi, barrier_t),
+                       _penalty_grad(prob, lo, hi, penalty_w))
+
+
+def composite(prob: AllocationProblem, x: torch.Tensor, barrier_t,
+              penalty_w, use_barrier: torch.Tensor, use_kernel: bool = True
+              ) -> torch.Tensor:
+    """f(x) + (barrier | penalty), one value per point."""
+    return (objective(prob, x, use_kernel)
+            + barrier_or_penalty(prob, x, barrier_t, penalty_w, use_barrier))
+
+
+def composite_grad(prob: AllocationProblem, x: torch.Tensor, barrier_t,
+                   penalty_w, use_barrier: torch.Tensor,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """Gradient of :func:`composite` — the relaxation's per-iteration
+    gradient (one kernel launch for eq. (1) on the card)."""
+    return (grad_objective(prob, x, use_kernel)
+            + barrier_or_penalty_grad(prob, x, barrier_t, penalty_w,
+                                      use_barrier))
 
 
 def is_feasible(prob: AllocationProblem, x: torch.Tensor, tol: float = 1e-4

@@ -1,6 +1,7 @@
 """repro_torch.fleet — the batched fleet solver and trace replay: stack
 tenant problems (``batching``), solve them cold (``solve_fleet``) and warm
-(``solve_fleet_step``), and replay demand traces (``replay_fleet``)."""
+(``solve_fleet_step``), and replay demand traces (``replay_fleet``)
+against the Cluster-Autoscaler baseline on the same traces."""
 from .batching import (FleetBatch, bucket_dims, ceil_pow2, embed_solutions,
                        stack_problems, tenant_problem)
 from .metrics import FleetReplayMetrics, TenantReplayMetrics

@@ -1,6 +1,7 @@
 """Fleet/time metric aggregation for trace replays — port of
-``repro.fleet.metrics`` (numpy only). Health monitoring is not ported yet,
-so ``FleetReplayMetrics.health`` is always None.
+``repro.fleet.metrics`` (numpy only). Health monitoring and the oracle-MPC
+comparison are not ported yet, so ``FleetReplayMetrics.health`` is always
+None and there is no ``oracle`` field.
 
 Extends the paper's snapshot metrics (repro_torch.core.metrics) over TIME
 (cost integral, SLO-violation ticks, churn) and over the FLEET (tenant
@@ -83,15 +84,17 @@ def tenant_metrics(name: str, steps: Sequence[AllocationMetrics],
 
 @dataclass
 class FleetReplayMetrics:
-    """Aggregate over all tenants.
+    """Aggregate over all tenants; optionally paired with the Cluster-
+    Autoscaler ``baseline`` replayed on the same traces
+    (``replay_fleet(run_ca_baseline=True)``, one entry per tenant).
 
     ``replay_mode`` and ``controller`` record which engine and control loop
-    produced the histories (provenance only). The reference's Cluster-
-    Autoscaler ``baseline`` and oracle-MPC ``oracle`` comparisons are not
-    ported yet, and neither is health monitoring: ``health`` is always
-    None."""
+    produced the histories (provenance only). The reference's oracle-MPC
+    ``oracle`` comparison is not ported yet, and neither is health
+    monitoring: ``health`` is always None."""
 
     tenants: List[TenantReplayMetrics]
+    baseline: Optional[List[TenantReplayMetrics]] = None
     replay_mode: str = "batched"
     controller: str = "myopic"
     health: None = field(default=None, compare=False)
@@ -138,6 +141,19 @@ class FleetReplayMetrics:
                 "p95": float(np.percentile(arr, 95)),
                 "max": int(arr.max())}
 
+    @property
+    def baseline_cost_integral(self) -> Optional[float]:
+        if self.baseline is None:
+            return None
+        return sum(t.cost_integral for t in self.baseline)
+
+    @property
+    def cost_savings_vs_baseline_pct(self) -> Optional[float]:
+        base = self.baseline_cost_integral
+        if base is None or base <= 0:
+            return None
+        return 100.0 * (base - self.total_cost_integral) / base
+
     def summary(self) -> str:
         # horizons may be ragged — report the range, not tenants[0]'s length
         ticks = sorted({t.ticks for t in self.tenants})
@@ -163,4 +179,9 @@ class FleetReplayMetrics:
             lines.append(f"  solver iters/tick  : p50 {pct['p50']:.0f}, "
                          f"p95 {pct['p95']:.0f}, max {pct['max']} "
                          f"(warm ticks)")
+        if self.baseline is not None:
+            lines.append(f"  CA baseline cost   : "
+                         f"${self.baseline_cost_integral:,.2f}")
+            lines.append(f"  savings vs CA      : "
+                         f"{self.cost_savings_vs_baseline_pct:+.1f}%")
         return "\n".join(lines)

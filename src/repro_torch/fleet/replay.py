@@ -15,9 +15,19 @@ Controllers build each tick's per-tenant problem on the host;
 ``stack_problems`` moves each bucket's stack to the device in one copy
 per leaf, and the solve runs there.
 
+The Cluster-Autoscaler baseline runs on the host (numpy, as in the
+reference and the paper) over the same traces. Each tenant's node pools
+are sized from its trace's PER-RESOURCE PEAK demand
+(``trace.max(axis=0)``): pools sized from one tick could not schedule the
+peak of a ramp or a flash crowd, and the baseline's phantom SLO misses
+would inflate the savings. By default the whole baseline fleet steps
+through ``simulate_cluster_autoscaler_batch``, one call per tick per
+distinct catalog; ``ca_engine="sequential"`` loops the per-tenant oracle,
+and the two agree tick for tick.
+
 Not ported yet (each raises ``NotImplementedError``): the sequential
-engine, the MPC controller, the Cluster-Autoscaler baseline, health
-monitoring, anytime deadlines, solver-trace capture and telemetry spans.
+engine, the MPC controller, health monitoring, anytime deadlines,
+solver-trace capture and telemetry spans.
 """
 from __future__ import annotations
 
@@ -27,10 +37,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.autoscaler import (default_pools_for,
+                               simulate_cluster_autoscaler,
+                               simulate_cluster_autoscaler_batch)
 from ..core.catalog import Catalog
 from ..core.catalog import M as RESOURCE_DIM
 from ..core.controller import (ControllerStep,
                                InfrastructureOptimizationController)
+from ..core.metrics import AllocationMetrics, evaluate
 from ..core.problem import PenaltyParams
 from ..device import DeviceLike, resolve_device
 from .batching import bucket_dims, embed_solutions, stack_problems
@@ -52,6 +66,8 @@ class TenantSpec:
     params: Optional[PenaltyParams] = None
     allowed_idx: Optional[np.ndarray] = None     # approved instance types
     catalog: Optional[Catalog] = None            # overrides the fleet catalog
+    ca_pool_idx: Optional[np.ndarray] = None     # CA node pools (default: the
+                                                 # cheapest covering types)
     terms: tuple = ()
     spot_idx: Optional[np.ndarray] = None        # (S,) catalog spot-twin idx
     spot_availability: Optional[np.ndarray] = None   # (T', S) in {0, 1}
@@ -94,6 +110,8 @@ class TenantReplay:
     spec: TenantSpec
     steps: List[ControllerStep]
     metrics: TenantReplayMetrics
+    ca_metrics: Optional[TenantReplayMetrics] = None
+    ca_counts: Optional[np.ndarray] = None       # final CA allocation
 
 
 @dataclass
@@ -102,6 +120,100 @@ class FleetReplayResult:
 
     tenants: List[TenantReplay]
     metrics: FleetReplayMetrics
+
+
+def default_ca_pools(catalog: Catalog, demand: np.ndarray,
+                     k: int = 8) -> np.ndarray:
+    """The k most cost-efficient single-type covers of ``demand`` — the node
+    pools an operator would plausibly configure for this workload. For a
+    trace replay ``demand`` is the trace's per-resource peak."""
+    K, _, c = catalog.matrices()
+    d = np.asarray(demand, np.float64)
+    safe_K = np.where(K > 0, K, 1e-9)
+    cover = np.max(d[:, None] / safe_K, axis=0)          # units of each type
+    covers_all = np.all((K > 0) | (d[:, None] == 0), axis=0)
+    cost = np.where(covers_all, cover * c, np.inf)
+    order = np.argsort(cost)
+    return order[: min(k, int(np.isfinite(cost).sum()))]
+
+
+def _replay_ca(catalog: Catalog, spec: TenantSpec, pool_idx: np.ndarray,
+               expander: str, mode: str):
+    """Carry the Cluster-Autoscaler baseline tick to tick over one trace."""
+    counts_prev = np.zeros(catalog.n, np.float64)
+    tick_metrics: List[AllocationMetrics] = []
+    churns: List[float] = []
+    for demand in np.asarray(spec.trace, np.float64):
+        existing = {int(j): int(counts_prev[j])
+                    for j in np.nonzero(counts_prev)[0]}
+        pools = default_pools_for(catalog, pool_idx, existing=existing)
+        res = simulate_cluster_autoscaler(catalog, pools, demand,
+                                          expander=expander, mode=mode)
+        churns.append(float(np.abs(res.counts - counts_prev).sum()))
+        counts_prev = res.counts
+        tick_metrics.append(evaluate(catalog, res.counts, demand))
+    return tick_metrics, churns, counts_prev
+
+
+def _ca_pool_idx(cat: Catalog, spec: TenantSpec) -> np.ndarray:
+    """The tenant's CA node-pool types: explicit ``ca_pool_idx``, else pools
+    sized from the trace's per-resource peak demand."""
+    if spec.ca_pool_idx is not None:
+        return spec.ca_pool_idx
+    return default_ca_pools(cat, np.asarray(spec.trace, np.float64).max(axis=0))
+
+
+def _ca_baseline(catalog: Catalog, spec: TenantSpec, ca_expander: str,
+                 ca_mode: str):
+    """The sequential-oracle CA baseline of one tenant:
+    ``(metrics, final counts)``."""
+    cat = spec.catalog or catalog
+    tick_metrics, churns, ca_counts = _replay_ca(
+        cat, spec, _ca_pool_idx(cat, spec), ca_expander, ca_mode)
+    return tenant_metrics(f"{spec.name}/ca", tick_metrics, churns), ca_counts
+
+
+def _replay_ca_fleet(catalog: Catalog, tenants: Sequence[TenantSpec],
+                     expander: str, mode: str):
+    """The CA baseline of ALL tenants, carried tick to tick at once: tenants
+    are grouped by catalog (identity), and each group advances through one
+    ``simulate_cluster_autoscaler_batch`` call per tick; a tenant leaves
+    its group's active set when its trace ends. Tick-for-tick equal to
+    :func:`_ca_baseline` per tenant. Returns one ``(metrics, final
+    counts)`` pair per tenant."""
+    cats = [spec.catalog or catalog for spec in tenants]
+    groups: Dict[int, List[int]] = {}
+    for i, cat in enumerate(cats):
+        groups.setdefault(id(cat), []).append(i)
+    out: List = [None] * len(tenants)
+    for idx in groups.values():
+        cat = cats[idx[0]]
+        traces = [np.asarray(tenants[i].trace, np.float64) for i in idx]
+        pool_idx = [_ca_pool_idx(cat, tenants[i]) for i in idx]
+        counts = np.zeros((len(idx), cat.n), np.float64)
+        tick_metrics: List[List[AllocationMetrics]] = [[] for _ in idx]
+        churns: List[List[float]] = [[] for _ in idx]
+        for t in range(max(tr.shape[0] for tr in traces)):
+            act = [k for k, tr in enumerate(traces) if t < tr.shape[0]]
+            demands = np.stack([traces[k][t] for k in act])
+            pools_t = []
+            for k in act:
+                existing = {int(j): int(counts[k, j])
+                            for j in np.nonzero(counts[k])[0]}
+                pools_t.append(default_pools_for(cat, pool_idx[k],
+                                                 existing=existing))
+            res = simulate_cluster_autoscaler_batch(cat, pools_t, demands,
+                                                    expander=expander,
+                                                    mode=mode)
+            for k, r in zip(act, res):
+                churns[k].append(float(np.abs(r.counts - counts[k]).sum()))
+                counts[k] = r.counts
+                tick_metrics[k].append(evaluate(cat, r.counts, traces[k][t]))
+        for pos, i in enumerate(idx):
+            out[i] = (tenant_metrics(f"{tenants[i].name}/ca",
+                                     tick_metrics[pos], churns[pos]),
+                      counts[pos].copy())
+    return out
 
 
 def _make_controller(catalog: Catalog, spec: TenantSpec
@@ -114,14 +226,17 @@ def _make_controller(catalog: Catalog, spec: TenantSpec
         device=HOST)
 
 
-def _assemble_replay(spec: TenantSpec, steps: List[ControllerStep]
-                     ) -> TenantReplay:
-    """Roll one tenant's step history into a TenantReplay."""
+def _assemble_replay(spec: TenantSpec, steps: List[ControllerStep],
+                     ca: Optional[Tuple]) -> TenantReplay:
+    """Roll one tenant's step history (plus its CA baseline's
+    ``(metrics, counts)`` pair, or None) into a TenantReplay."""
     met = tenant_metrics(spec.name, [s.metrics for s in steps],
                          [s.churn for s in steps],
                          churn_violations=[s.churn_violation for s in steps],
                          solver_iters=[s.solver_iters for s in steps])
-    return TenantReplay(spec=spec, steps=steps, metrics=met)
+    ca_met, ca_counts = ca if ca is not None else (None, None)
+    return TenantReplay(spec=spec, steps=steps, metrics=met,
+                        ca_metrics=ca_met, ca_counts=ca_counts)
 
 
 def _replay_batch_groups(ctls: Sequence[InfrastructureOptimizationController],
@@ -205,6 +320,9 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
                  replay_mode: str = "sequential",
                  controller: str = "myopic",
                  run_ca_baseline: bool = True,
+                 ca_engine: str = "vectorized",
+                 ca_expander: str = "random",
+                 ca_mode: str = "wave",
                  warm_start: str = "counts",
                  solver_steps: int = 600,
                  hot_loop: str = "kernel",
@@ -214,9 +332,14 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
                  device: DeviceLike = None) -> FleetReplayResult:
     """Replay every tenant; returns per-tenant histories + fleet aggregates.
 
-    The port runs ``replay_mode="batched"`` with the myopic controller and
-    ``run_ca_baseline=False``; the defaults are the reference's, and what is
-    not ported yet raises ``NotImplementedError``. ``warm_start`` picks the
+    The port runs ``replay_mode="batched"`` with the myopic controller;
+    the defaults are the reference's, and what is not ported yet raises
+    ``NotImplementedError``. ``run_ca_baseline`` also replays the Cluster-
+    Autoscaler baseline on the same traces (``FleetReplayMetrics.baseline``):
+    ``ca_engine="vectorized"`` steps every tenant at once per tick,
+    ``"sequential"`` loops the per-tenant oracle; ``ca_expander`` and
+    ``ca_mode`` are ``simulate_cluster_autoscaler``'s ``expander`` and
+    ``mode``. ``warm_start`` picks the
     warm tick's start: the previous integer allocation (``"counts"``) or the
     previous relaxed solution (``"relaxed"``). ``solver_steps`` is each
     warm tick's PGD budget. ``hot_loop="kernel"`` evaluates eq. (1) with
@@ -233,13 +356,12 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
         raise ValueError(f"unknown controller {controller!r}")
     if warm_start not in ("counts", "relaxed"):
         raise ValueError(f"unknown warm_start {warm_start!r}")
+    if ca_engine not in ("vectorized", "sequential"):
+        raise ValueError(f"unknown ca_engine {ca_engine!r}")
     if replay_mode == "sequential":
         raise _not_ported('replay_mode="sequential"')
     if controller == "mpc":
         raise _not_ported('controller="mpc"')
-    if run_ca_baseline:
-        raise _not_ported("run_ca_baseline=True (the Cluster-Autoscaler "
-                          "baseline)")
     if capture_solver_trace:
         raise _not_ported("capture_solver_trace=True")
     if health is not None:
@@ -250,9 +372,18 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     histories = _replay_fleet_batched(catalog, tenants, warm_start=warm_start,
                                       solver_steps=solver_steps,
                                       hot_loop=hot_loop, device=dev)
-    replays = [_assemble_replay(spec, steps)
-               for spec, steps in zip(tenants, histories)]
-    metrics = FleetReplayMetrics(tenants=[r.metrics for r in replays],
-                                 replay_mode=replay_mode,
-                                 controller=controller)
+    if not run_ca_baseline:
+        cas = [None] * len(tenants)
+    elif ca_engine == "vectorized":
+        cas = _replay_ca_fleet(catalog, tenants, ca_expander, ca_mode)
+    else:
+        cas = [_ca_baseline(catalog, spec, ca_expander, ca_mode)
+               for spec in tenants]
+    replays = [_assemble_replay(spec, steps, ca)
+               for spec, steps, ca in zip(tenants, histories, cas)]
+    metrics = FleetReplayMetrics(
+        tenants=[r.metrics for r in replays],
+        baseline=([r.ca_metrics for r in replays]
+                  if run_ca_baseline else None),
+        replay_mode=replay_mode, controller=controller)
     return FleetReplayResult(tenants=replays, metrics=metrics)

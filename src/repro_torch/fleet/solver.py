@@ -74,40 +74,6 @@ def _use_kernel(hot_loop: str) -> bool:
     return hot_loop == "kernel"
 
 
-# ---------------------------------------------------------------------------
-# batched constraint machinery: X is (B, T, n) — starts or the flattened
-# candidate ladder
-# ---------------------------------------------------------------------------
-
-
-def _constraint_values(prob, X, barrier_t, penalty_w):
-    """Barrier and penalty VALUES (B, T)."""
-    lo, hi = obj.constraint_residuals(prob, X)         # (B, T, m) each
-    safe = (lo > 0).all(-1) & (hi > 0).all(-1)
-    one = torch.ones_like(lo)
-    bval = -(1.0 / barrier_t) * (
-        torch.log(torch.where(lo > 0, lo, one)).sum(-1)
-        + torch.log(torch.where(hi > 0, hi, one)).sum(-1))
-    bval = torch.where(safe, bval, torch.full_like(bval, float("inf")))
-    vlo = torch.clamp(-lo, min=0.0)
-    vhi = torch.clamp(-hi, min=0.0)
-    qval = penalty_w * ((vlo ** 2).sum(-1) + (vhi ** 2).sum(-1))
-    return bval, qval
-
-
-def _constraint_grads(prob, X, barrier_t, penalty_w):
-    """Barrier and penalty GRADIENTS (B, T, n)."""
-    lo, hi = obj.constraint_residuals(prob, X)
-    lo_c = torch.clamp(lo, min=1e-9)
-    hi_c = torch.clamp(hi, min=1e-9)
-    KT = lambda v: torch.einsum("bmn,btm->btn", prob.K, v)
-    bgrad = (1.0 / barrier_t) * (KT(1.0 / hi_c) - KT(1.0 / lo_c))
-    vlo = torch.clamp(-lo, min=0.0)
-    vhi = torch.clamp(-hi, min=0.0)
-    qgrad = penalty_w * 2.0 * (KT(vhi) - KT(vlo))
-    return bgrad, qgrad
-
-
 def _pgd_fleet(prob, X0, barrier_t, penalty_w, strict, cfg: SolverConfig,
                use_kernel: bool):
     """Batched inner PGD over (B, S) simultaneous solves.
@@ -123,15 +89,14 @@ def _pgd_fleet(prob, X0, barrier_t, penalty_w, strict, cfg: SolverConfig,
     def F_values(Xc):
         """Composite values (B, T) for Xc (B, T, n); T is S or S*L."""
         f = ops.fleet_value(prob, Xc, use_kernel=use_kernel)
-        bval, qval = _constraint_values(prob, Xc, barrier_t, penalty_w)
         s = strict.repeat_interleave(Xc.shape[1] // S, dim=1)
-        return f + torch.where(s, bval, qval)
+        return f + obj.barrier_or_penalty(prob, Xc, barrier_t, penalty_w, s)
 
     def G_at(Xc):
         """Composite gradient at the (B, S, n) iterate."""
         _, g = ops.fleet_value_and_grad(prob, Xc, use_kernel=use_kernel)
-        bgrad, qgrad = _constraint_grads(prob, Xc, barrier_t, penalty_w)
-        return g + torch.where(strict[..., None], bgrad, qgrad)
+        return g + obj.barrier_or_penalty_grad(prob, Xc, barrier_t,
+                                               penalty_w, strict)
 
     ratios = ladder_ratios(cfg, X0.device)             # 1 upscale, as core
     x = obj.project(prob, X0)

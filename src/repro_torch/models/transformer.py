@@ -33,8 +33,9 @@ from .layers import (embed, ffn, init_embedding, init_ffn, init_rmsnorm,
 from .rwkv import RWKVCache
 
 NOT_PORTED = ("not ported yet: repro_torch runs attention blocks with dense "
-              "FFNs and RWKV6 blocks with their channel mix (ROADMAP.md "
-              "queue 1, item 12)")
+              "FFNs and RWKV6 blocks with their channel mix; MoE FFNs, Mamba "
+              "blocks and the vision frontend are still to port (see "
+              "ROADMAP.md)")
 # the (block, ffn) kinds a layer may have
 PORTED_KINDS = {("attn", "dense"), ("rwkv", "rwkv_cm")}
 

@@ -74,8 +74,11 @@ def test_fleet_kernel_matches_plain(cuda, B, T, m, n, p):
     _close(ops.fleet_value(P, X), ref.alloc_objective_fleet_value(X, *args))
 
 
+# S = 72 and 6: the scenario pipeline's shapes (6 starts x the 12-rung
+# Armijo ladder, and the 6 iterates' gradient) over the full catalog
 @pytest.mark.parametrize("S,m,n,p", [(13, 4, 37, 2), (128, 4, 1880, 2),
-                                     (1, 2, 16, 2)])
+                                     (1, 2, 16, 2), (72, 4, 1880, 2),
+                                     (6, 4, 1880, 2)])
 def test_single_kernel_matches_plain(cuda, S, m, n, p):
     prob = _problem(S, m, n, p, cuda)
     gen = torch.Generator(device=cuda).manual_seed(S)
@@ -150,3 +153,28 @@ def test_wrapper_rejects_bad_operands(cuda):
     wide = stack_problems([_problem(0, 9, 64, 2, cuda)])
     with pytest.raises(ValueError):
         ops.fleet_value(wide.problem, X)
+
+
+def test_optimize_runs_the_single_problem_kernel(cuda):
+    """The scenario pipeline on the card evaluates eq. (1) with the
+    single-problem form only; use_kernel=False launches nothing, and both
+    commit allocations of the same objective."""
+    from repro_torch.core import (Catalog, SolverConfig, build_scenarios,
+                                  make_cloud_catalog, optimize)
+    cat = Catalog(make_cloud_catalog().instances[::20])
+    cfg = SolverConfig(max_iters=100, barrier_rounds=2)
+    for scenario in build_scenarios(cat)[:2]:
+        ops.reset_launches()
+        kern = optimize(cat, scenario, n_starts=6, cfg=cfg, device=cuda)
+        launches = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        plain = optimize(cat, scenario, n_starts=6, cfg=cfg,
+                         use_kernel=False, device=cuda)
+        assert launches["alloc_objective"] > 0
+        assert launches["alloc_objective_fleet"] == 0
+        assert launches["alloc_objective_fleet_value"] == 0
+        assert not any(ops.LAUNCHES.values())
+        assert kern.metrics.satisfied and plain.metrics.satisfied
+        np.testing.assert_array_equal(kern.counts, np.round(kern.counts))
+        assert (np.array_equal(kern.counts, plain.counts)
+                or abs(kern.fun - plain.fun) <= 1e-4 * abs(plain.fun))

@@ -92,10 +92,29 @@ def test_ragged_horizons_freeze_finished_tenants():
     assert out.metrics.total_tenant_ticks == 7
 
 
+def test_ca_baseline_runs_by_default():
+    """replay_fleet's default run_ca_baseline=True (it raised until the
+    baseline was ported): every tenant gets its CA metrics and counts."""
+    cat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
+    out = tfleet.replay_fleet(cat, _specs(tfleet.TenantSpec,
+                                          tfleet.make_trace),
+                              replay_mode="batched", device="cpu")
+    assert len(out.metrics.baseline) == len(TENANTS)
+    for r in out.tenants:
+        assert r.ca_metrics.name == f"{r.spec.name}/ca"
+        assert r.ca_metrics.ticks == T
+        assert r.ca_counts.shape == (cat.n,)
+        np.testing.assert_array_equal(r.ca_counts, np.round(r.ca_counts))
+    base = out.metrics.baseline_cost_integral
+    assert base == sum(r.ca_metrics.cost_integral for r in out.tenants) > 0
+    assert out.metrics.cost_savings_vs_baseline_pct == pytest.approx(
+        100.0 * (base - out.metrics.total_cost_integral) / base)
+    assert "savings vs CA" in out.metrics.summary()
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(replay_mode="sequential", run_ca_baseline=False),
     dict(replay_mode="batched", controller="mpc", run_ca_baseline=False),
-    dict(replay_mode="batched"),                      # the CA baseline
     dict(replay_mode="batched", run_ca_baseline=False,
          capture_solver_trace=True),
     dict(replay_mode="batched", run_ca_baseline=False, health=object()),
