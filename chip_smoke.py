@@ -41,7 +41,7 @@ Phases, one JSON object per line:
              1880-type catalog, 4 ticks (1 cold solve_fleet, 3 warm
              solve_fleet_step), launch counts zeroed just before and read
              just after, and the alloc_objective launches also counted by
-             entry and T; the Cluster-Autoscaler baseline on the host, timed
+             entry and (B, T); the Cluster-Autoscaler baseline on the host, timed
              apart (``ca_s``), with its cost integral, SLO-violation ticks
              and the optimizer's savings against it; then the same replay
              with hot_loop="ref" (the plain PyTorch eq. (1)) on the card,
@@ -64,6 +64,11 @@ Phases, one JSON object per line:
 5. profile — torch.profiler over one warm tick of the same fleet: device
              busy share, the kernels that take the time, and the device
              time and launches of the alloc_objective kernel.
+   kernels also checks and times this slice's shapes at n = 1880: the
+             single-problem entry at S = 12 and 1 (a branch-and-bound
+             node's ladder and gradient) and S = 48 and 4 (the sequential
+             controller's cold tick, 4 starts), and the fleet entries at
+             B = 1 (its warm tick: T = 1 value+gradient, T = 12 value).
 6. scenarios — the paper's one-shot comparison, the main path of
              alloc_objective's single-problem form: ``optimize`` (6 starts,
              seed 0) on the five scenarios of ``build_scenarios`` over the
@@ -77,6 +82,30 @@ Phases, one JSON object per line:
              form and the plain run nothing, each optimizer cost is at most
              1.05 x the CA's and the mean savings lie in 30-85%
              (tests/core/test_scenarios_api.py).
+   bnb     — branch-and-bound: ``optimize(use_bnb=True, n_starts=6,
+             seed=0)`` (24 nodes) on s4_memory with the kernel and plain,
+             launch counts zeroed just before each run and read just
+             after: nodes explored, relaxation solves, incumbent updates,
+             gap, wall seconds, launches by entry and shape, and the cost
+             against the scenarios phase's multistart answer and the CA
+             median. It fails unless every allocation is integral and
+             satisfies its demand, used_bnb holds, the kernel run launched
+             the single-problem form only and the plain run nothing, the
+             two runs are equally feasible, and their answers (eq. (1) at
+             the counts) agree within 0.05 or each lies within 0.05 of an
+             answer the reference reaches under a one-ulp change of the
+             problem (REF_S4_BNB; ``bnb_spread.py`` measures the port's
+             spread).
+   sequential — the control loop: the first four tenants of the replay
+             phase (one per trace kind) over the full catalog, 4 ticks, CA
+             off, replayed with ``replay_mode="sequential"``, with
+             ``"batched"`` and ``hot_loop="vmap"``, and with ``"batched"``
+             and ``hot_loop="kernel"``; wall, cold and warm solve seconds
+             and launches by entry and shape of each. It fails unless the
+             sequential and vmap replays commit the same counts for every
+             tenant at every tick, bit for bit, and the kernel replay lies
+             within rtol 0.05 per tenant and 2e-2 over the fleet of the
+             sequential one, with identical satisfaction flags.
 7. attention — the flash_attention and decode_attention kernels on the card
              against their plain PyTorch versions (on the float32 values of
              the same inputs; rtol = atol = 2e-4 in float32, 2e-2 in
@@ -185,6 +214,23 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
 SCENARIO_STARTS, CA_SEEDS, CA_SLACK = 6, 3, 1.05
 SAVINGS_BAND = (30.0, 85.0)
 FUN_RTOL = 1e-4               # kernel vs plain optimize: eq. (1) at the counts
+# branch-and-bound runs (scenario, engine, use_kernel): s4_memory, where
+# the search changes the reference's answer most, kernel and plain (a
+# kernel run of s3_enterprise, the other such scenario, was cut for time)
+BNB_RUNS = (("s4_memory", "kernel", True), ("s4_memory", "plain", False))
+# eq. (1) at the counts optimize(use_bnb=True, n_starts=6, seed=0) commits
+# on s4_memory in the reference, on the unchanged problem ("none") and with
+# c or d scaled by 1 +- 2^-23 (each entry moves by at most one float32 ulp;
+# tests/test_torch_bnb_spread.py reproduces them): a one-ulp change moves
+# the reference's own answer by 9%, past TENANT_RTOL
+REF_S4_BNB = {"none": 0.5736375451087952, "c+": 0.6254016757011414,
+              "c-": 0.6254016757011414, "d+": 0.6254016757011414,
+              "d-": 0.5736375451087952}
+# the sequential phase's engines (name, replay_mode, hot_loop) and tenants
+SEQUENTIAL_RUNS = (("sequential", "sequential", "kernel"),
+                   ("vmap", "batched", "vmap"),
+                   ("kernel", "batched", "kernel"))
+SEQUENTIAL_TENANTS = 4        # the first four: one per trace kind
 REPLACES = {
     "alloc_objective_fleet": "src/repro/kernels/alloc_objective/kernel.py:136",
     "alloc_objective_fleet_value":
@@ -1111,6 +1157,264 @@ def scenario_checks(dev, ops) -> dict:
             "mean_savings_pct": mean, "launches": dict(total)}
 
 
+class ShapeCounts:
+    """Counts the alloc_objective kernel's launches by entry and shape
+    (``entry@B=..,T=..``) while in a ``with`` block, by wrapping the
+    wrappers' one launch function."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        self.launch = launch = self.ops._launch
+
+        def counted(entry, X, *a, **kw):
+            out = launch(entry, X, *a, **kw)
+            self.counts[f"{entry}@B={X.shape[0]},T={X.shape[1]}"] += 1
+            return out
+
+        self.ops._launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._launch = self.launch
+        return False
+
+    def by_shape(self) -> dict:
+        return dict(sorted(self.counts.items()))
+
+
+def bnb_checks(dev, ops, scen) -> dict:
+    """Branch-and-bound on the card through ``optimize(use_bnb=True,
+    n_starts=6, seed=0)`` (24 nodes, the default) over the full catalog,
+    the runs of BNB_RUNS, launch counts zeroed just before each run and
+    read just after. Beside each: nodes explored, relaxation solves,
+    incumbent updates, gap, wall seconds, launches by entry and shape, and
+    the cost against the scenarios phase's multistart answer (``scen``)
+    and the CA median.
+
+    Raises unless every allocation is integral and satisfies its demand,
+    ``used_bnb`` holds, the kernel run launched the single-problem form
+    only and the plain run nothing, the two s4 runs are equally feasible,
+    and their answers (eq. (1) at the counts) agree within TENANT_RTOL or
+    each lies within TENANT_RTOL of an answer the reference reaches on s4
+    under a one-ulp change of the problem (REF_S4_BNB). The second arm is
+    there because a node's relaxation stops at its iteration budget and
+    the branch variable is the most fractional one, so rounding alone
+    picks between the reference's answers; ``bnb_spread.py`` measures
+    that spread for both paths."""
+    import numpy as np
+    import torch
+    import repro_torch.core.api as api_mod
+    import repro_torch.core.branch_bound as bb_mod
+    from repro_torch.core import build_scenarios, make_cloud_catalog
+    catalog = make_cloud_catalog()
+    scenarios = {sc.name: sc for sc in build_scenarios(catalog)}
+    phase_rows = {r["scenario"]: r for r in scen["scenarios"]}
+    seen = {}
+    solves = [0]
+    wrapped = (api_mod.multistart_solve, api_mod.branch_and_bound,
+               bb_mod.solve_relaxation)
+
+    def keep(name, fn):
+        def wrapper(*a, **kw):
+            seen[name] = out = fn(*a, **kw)
+            return out
+        return wrapper
+
+    def counted_solve(*a, **kw):
+        solves[0] += 1
+        return wrapped[2](*a, **kw)
+
+    api_mod.multistart_solve = keep("ms", wrapped[0])
+    api_mod.branch_and_bound = keep("bnb", wrapped[1])
+    bb_mod.solve_relaxation = counted_solve
+    rows = {}
+    try:
+        for name, who, use_kernel in BNB_RUNS:
+            sc = scenarios[name]
+            seen.clear()
+            solves[0] = 0
+            ops.reset_launches()
+            with ShapeCounts(ops) as shapes:
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                res = api_mod.optimize(catalog, sc, n_starts=SCENARIO_STARTS,
+                                       seed=0, use_bnb=True,
+                                       use_kernel=use_kernel, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - s0
+            ms, bnb = seen["ms"], seen["bnb"]
+            ref_row = phase_rows[name]
+            cost = res.metrics.total_cost
+            row = {"scenario": name, "engine": who, "wall_s": wall,
+                   "nodes_explored": bnb.nodes_explored,
+                   "relaxation_solves": solves[0],
+                   "incumbent_updates": bnb.incumbent_updates,
+                   "gap": bnb.gap, "bnb_fun": bnb.fun,
+                   "multistart_fun_int": float(ms.fun_int), "fun": res.fun,
+                   "kept_multistart": bool(np.array_equal(
+                       res.counts, ms.x_int.cpu().numpy())),
+                   "cost": cost,
+                   "multistart_cost": ref_row["optimizer_cost"],
+                   "ca_cost": ref_row["ca_cost"],
+                   "savings_vs_multistart_pct":
+                       100.0 * (ref_row["optimizer_cost"] - cost)
+                       / ref_row["optimizer_cost"],
+                   "savings_vs_ca_pct": 100.0 * (ref_row["ca_cost"] - cost)
+                   / ref_row["ca_cost"],
+                   "satisfied": res.metrics.satisfied,
+                   "integral": bool(np.array_equal(res.counts,
+                                                   np.round(res.counts))),
+                   "used_bnb": res.used_bnb,
+                   "launches": dict(ops.LAUNCHES),
+                   "launches_by_shape": shapes.by_shape()}
+            rows[(name, who)] = (row, res)
+            if not (row["satisfied"] and row["integral"] and res.used_bnb):
+                raise AssertionError(f"bnb {name} ({who}): {row}")
+            launches = row["launches"]
+            if use_kernel and (launches["alloc_objective"] == 0
+                               or launches["alloc_objective_fleet"]
+                               or launches["alloc_objective_fleet_value"]):
+                raise AssertionError(f"bnb {name} ({who}): {launches}")
+            if not use_kernel and any(launches.values()):
+                raise AssertionError(f"bnb {name} (plain) launched {launches}")
+    finally:
+        (api_mod.multistart_solve, api_mod.branch_and_bound,
+         bb_mod.solve_relaxation) = wrapped
+    kern, plain = (rows[("s4_memory", who)][1] for who in ("kernel", "plain"))
+
+    def near(got, want):
+        return abs(got - want) <= TENANT_RTOL * abs(want)
+
+    def in_spread(fun):
+        return any(near(fun, want) for want in REF_S4_BNB.values())
+
+    gate = {"counts_equal": bool(np.array_equal(kern.counts, plain.counts)),
+            "fun_rel_diff": abs(kern.fun - plain.fun) / abs(plain.fun),
+            "rtol": TENANT_RTOL,
+            "satisfied_equal": (kern.metrics.satisfied
+                                == plain.metrics.satisfied),
+            "reference_spread": sorted(set(REF_S4_BNB.values())),
+            "kernel_in_reference_spread": in_spread(kern.fun),
+            "plain_in_reference_spread": in_spread(plain.fun)}
+    agree = gate["counts_equal"] or near(kern.fun, plain.fun)
+    spread = (gate["kernel_in_reference_spread"]
+              and gate["plain_in_reference_spread"])
+    gate["held_by"] = ("kernel vs plain" if agree else
+                       "reference spread" if spread else None)
+    if not (gate["satisfied_equal"] and gate["held_by"]):
+        raise AssertionError(f"bnb s4: the kernel and plain runs part beyond "
+                             f"the reference's own spread: {gate}")
+    return {"n": catalog.n, "n_starts": SCENARIO_STARTS,
+            "runs": [r for r, _ in rows.values()],
+            "s4_kernel_vs_plain": gate}
+
+
+def sequential_checks(catalog, tenants, ops, replay_mod) -> dict:
+    """The sequential control loop on the card: ``tenants`` replayed with
+    the CA off three ways — ``replay_mode="sequential"`` (one controller
+    solve per tenant per tick), ``"batched"`` with ``hot_loop="vmap"`` (each
+    tenant solved alone inside the batched engine) and ``"batched"`` with
+    ``hot_loop="kernel"`` — launch counts zeroed just before each run and
+    read just after; cold and warm solve seconds apart. Raises unless the
+    sequential and vmap replays commit the same counts for every tenant at
+    every tick, bit for bit, and the kernel replay lies within TENANT_RTOL
+    of the sequential one per tenant and FLEET_RTOL over the fleet, with
+    identical satisfaction flags."""
+    import numpy as np
+    import torch
+    from repro_torch.core.controller import (
+        InfrastructureOptimizationController as Ctl)
+    solve_s = collections.defaultdict(float)
+    wrapped = {"cold_start_counts": Ctl.cold_start_counts,
+               "incremental_counts": Ctl.incremental_counts,
+               "solve_fleet": replay_mod.solve_fleet,
+               "solve_fleet_step": replay_mod.solve_fleet_step}
+    kinds = {"cold_start_counts": "cold", "incremental_counts": "warm",
+             "solve_fleet": "cold", "solve_fleet_step": "warm"}
+
+    def timed(name):
+        fn = wrapped[name]
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            solve_s[kinds[name]] += time.perf_counter() - s0
+            return out
+        return wrapper
+
+    Ctl.cold_start_counts = timed("cold_start_counts")
+    Ctl.incremental_counts = timed("incremental_counts")
+    replay_mod.solve_fleet = timed("solve_fleet")
+    replay_mod.solve_fleet_step = timed("solve_fleet_step")
+    runs = {}
+    try:
+        for who, mode, hot_loop in SEQUENTIAL_RUNS:
+            solve_s.clear()
+            ops.reset_launches()
+            with ShapeCounts(ops) as shapes:
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                out = replay_mod.replay_fleet(catalog, tenants,
+                                              replay_mode=mode,
+                                              hot_loop=hot_loop,
+                                              run_ca_baseline=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - s0
+            counts = [np.stack([s.counts for s in r.steps])
+                      for r in out.tenants]
+            if not all(np.isfinite(c).all() and np.array_equal(c, np.round(c))
+                       for c in counts):
+                raise AssertionError(f"{who}: non-integral counts")
+            runs[who] = (out, counts, {
+                "engine": who, "replay_mode": mode, "hot_loop": hot_loop,
+                "wall_s": wall, "cold_s": solve_s["cold"],
+                "warm_s": solve_s["warm"],
+                "cost_integral": out.metrics.total_cost_integral,
+                "satisfied_ticks": int(sum(s.metrics.satisfied
+                                           for r in out.tenants
+                                           for s in r.steps)),
+                "launches": dict(ops.LAUNCHES),
+                "launches_by_shape": shapes.by_shape()})
+            if not ops.LAUNCHES["alloc_objective_fleet"] and not ops.LAUNCHES[
+                    "alloc_objective"]:
+                raise AssertionError(f"{who}: the kernel never launched")
+    finally:
+        Ctl.cold_start_counts = wrapped["cold_start_counts"]
+        Ctl.incremental_counts = wrapped["incremental_counts"]
+        replay_mod.solve_fleet = wrapped["solve_fleet"]
+        replay_mod.solve_fleet_step = wrapped["solve_fleet_step"]
+    seq, seq_counts, _ = runs["sequential"]
+    _, vmap_counts, _ = runs["vmap"]
+    kern, _, _ = runs["kernel"]
+    differ = [b for b, (x, y) in enumerate(zip(seq_counts, vmap_counts))
+              if not np.array_equal(x, y)]
+    cost_s = np.asarray([r.metrics.cost_integral for r in seq.tenants])
+    cost_k = np.asarray([r.metrics.cost_integral for r in kern.tenants])
+    rel = np.abs(cost_k - cost_s) / np.abs(cost_s)
+    agg = abs(cost_k.sum() - cost_s.sum()) / cost_s.sum()
+    sat = lambda o: [[s.metrics.satisfied for s in r.steps] for r in o.tenants]
+    rec = {"tenants": [t.name for t in tenants],
+           "ticks": int(tenants[0].trace.shape[0]), "n": catalog.n,
+           "runs": [r for _, _, r in runs.values()],
+           "vmap_tenants_with_other_counts": differ,
+           "kernel_max_tenant_rel_diff": float(rel.max()),
+           "kernel_fleet_rel_diff": float(agg),
+           "kernel_satisfied_flags_equal": sat(kern) == sat(seq)}
+    if differ:
+        raise AssertionError(f"the vmap replay commits other counts than the "
+                             f"sequential one for tenants {differ}")
+    if not (rel.max() <= TENANT_RTOL and agg <= FLEET_RTOL
+            and rec["kernel_satisfied_flags_equal"]):
+        raise AssertionError(f"the kernel replay disagrees with the "
+                             f"sequential one: {rec}")
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1209,17 +1513,9 @@ def main() -> int:
     launch_floor_ms = device_ms(lambda: one.add_(1))
     measured = {}
     checks = []
-    # the replay's shapes (entry, T): the cold tick's ladder and gradient
-    # (the first of each is the kernels line's), its value after rounding,
-    # the warm tick's ladder and gradient; each on the padded bucket (timed)
-    # and on the unpadded catalog (n = 1880, checked)
-    shapes = [("alloc_objective_fleet_value", n_starts * L),
-              ("alloc_objective_fleet", n_starts),
-              ("alloc_objective_fleet_value", n_starts),
-              ("alloc_objective_fleet_value", L),
-              ("alloc_objective_fleet", 1)]
-    for (name, T), prob in itertools.product(shapes, (batch.problem,
-                                                       ragged.problem)):
+    def fleet_case(name, T, prob, timed):
+        """A fleet entry at (B, T) on ``prob`` against its plain version;
+        device ms, plan and bound where ``timed``."""
         X = points(prob, T)
         B, n = prob.c.shape
         grad = name == "alloc_objective_fleet"
@@ -1243,7 +1539,7 @@ def main() -> int:
         torch.cuda.synchronize()
         rec.update(name=name, shape={"B": B, "T": T, "n": n, "m": m_pad,
                                      "p": p_pad})
-        if n == n_pad:      # the replay's shape: time it
+        if timed:
             bound_ms, bound_by, nbytes, flops = kernel_bound(
                 B, T, n, m_pad, p_pad, grad)
             plan = ops.launch_plan(B, T, n, m_pad, p_pad,
@@ -1251,12 +1547,12 @@ def main() -> int:
             rec.update(**timings(kern, plain, launch), bound_ms=bound_ms,
                        bound_by=bound_by, bytes=nbytes, flops=flops,
                        plan=plan._asdict())
-            measured.setdefault(name, rec)
         checks.append(rec)
-    # the single-problem entry on tenant 0 (n = 1880): S = 128 points, then
-    # the scenario pipeline's ladder, 6 starts x L rungs (the kernels line's)
-    single = tenant_problem(batch, 0)
-    for S in (128, SCENARIO_STARTS * L):
+        return rec
+
+    def single_case(S):
+        """The single-problem entry at S points of tenant 0 (n = 1880)
+        against its plain version, timed, with its bound."""
         Xs = (2.0 * torch.rand((S, single.n), generator=gen, device=dev)
               * single.mask).contiguous()
         f, g = ops.batched_value_and_grad(single, Xs)
@@ -1278,7 +1574,40 @@ def main() -> int:
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                    flops=flops)
         checks.append(rec)
+        return rec
+
+    # the replay's shapes (entry, T): the cold tick's ladder and gradient
+    # (the first of each is the kernels line's), its value after rounding,
+    # the warm tick's ladder and gradient; each on the padded bucket (timed)
+    # and on the unpadded catalog (n = 1880, checked)
+    shapes = [("alloc_objective_fleet_value", n_starts * L),
+              ("alloc_objective_fleet", n_starts),
+              ("alloc_objective_fleet_value", n_starts),
+              ("alloc_objective_fleet_value", L),
+              ("alloc_objective_fleet", 1)]
+    for (name, T), prob in itertools.product(shapes, (batch.problem,
+                                                       ragged.problem)):
+        rec = fleet_case(name, T, prob, timed=prob.c.shape[1] == n_pad)
+        if prob.c.shape[1] == n_pad:
+            measured.setdefault(name, rec)
+    # the single-problem entry on tenant 0 (n = 1880): S = 128 points, then
+    # the scenario pipeline's ladder, 6 starts x L rungs (the kernels line's)
+    single = tenant_problem(batch, 0)
+    for S in (128, SCENARIO_STARTS * L):
+        rec = single_case(S)
     measured["alloc_objective"] = rec
+    # this slice's shapes at n = 1880, keyed as ShapeCounts keys them: a
+    # branch-and-bound node's ladder (S = 12) and gradient (S = 1) and the
+    # sequential cold tick's ladder (S = 4 * L) and gradient (S = 4) in the
+    # single-problem form; the sequential warm tick's gradient (T = 1) and
+    # ladder (T = L) in the fleet forms at B = 1 (tenant 0 alone)
+    slice_measured = {f"alloc_objective@B=1,T={S}": single_case(S)
+                      for S in (L, 1, n_starts * L, n_starts)}
+    alone = stack_problems([probs[0]], device=dev).problem
+    for name, T in (("alloc_objective_fleet", 1),
+                    ("alloc_objective_fleet_value", L)):
+        slice_measured[f"{name}@B=1,T={T}"] = fleet_case(name, T, alone,
+                                                         timed=True)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "rtol": RTOL, "atol": ATOL, "launch_floor_ms": launch_floor_ms,
           "checks": checks})
@@ -1311,34 +1640,24 @@ def main() -> int:
         return out
 
     replay_mod._replay_ca_fleet = timed_ca
-    # the kernel's launches by entry and T (rows per problem)
-    by_shape = collections.Counter()
-    launch_fn = ops._launch
-
-    def counted_launch(entry, X, *a, **kw):
-        out = launch_fn(entry, X, *a, **kw)
-        by_shape[f"{entry}@T={X.shape[1]}"] += 1
-        return out
-
-    ops._launch = counted_launch
 
     def run(hot_loop):
         solve_log.clear()
         ca_log.clear()
-        by_shape.clear()
         for kernel_ops in (ops, fops, dops, sops):
             kernel_ops.reset_launches()
-        torch.cuda.synchronize()
-        s0 = time.perf_counter()
-        out = replay_fleet(catalog, tenants, replay_mode="batched",
-                           run_ca_baseline=True, ca_engine="vectorized",
-                           hot_loop=hot_loop)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - s0
+        with ShapeCounts(ops) as shapes:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = replay_fleet(catalog, tenants, replay_mode="batched",
+                               run_ca_baseline=True, ca_engine="vectorized",
+                               hot_loop=hot_loop)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
         if any({**fops.LAUNCHES, **dops.LAUNCHES, **sops.LAUNCHES}.values()):
             raise AssertionError("the replay launched a model's kernels")
         return (out, wall, sum(ca_log), dict(ops.LAUNCHES), list(solve_log),
-                dict(sorted(by_shape.items())))
+                shapes.by_shape())
 
     def summary(out, wall, ca_s, launches, solves, launches_by_shape):
         sat = np.asarray([[s.metrics.satisfied for s in r.steps]
@@ -1376,7 +1695,6 @@ def main() -> int:
             raise AssertionError(f"the replay never launched {name}")
     p_out, *p_rest = run("ref")
     p_sum, p_sat = summary(p_out, *p_rest)
-    ops._launch = launch_fn
     if any(p_rest[2].values()):
         raise AssertionError(f"the plain replay launched kernels: {p_rest[2]}")
     # the CA baseline once more through its sequential per-tenant oracle,
@@ -1457,6 +1775,17 @@ def main() -> int:
     scen = scenario_checks(dev, ops)
     emit({"phase": "scenarios", "seconds": time.perf_counter() - t0, **scen})
 
+    # ---- bnb: branch-and-bound through optimize(use_bnb=True) -----------
+    t0 = time.perf_counter()
+    bnb = bnb_checks(dev, ops, scen)
+    emit({"phase": "bnb", "seconds": time.perf_counter() - t0, **bnb})
+
+    # ---- sequential: the control loop, one solve per tenant per tick -----
+    t0 = time.perf_counter()
+    seq = sequential_checks(catalog, tenants[:SEQUENTIAL_TENANTS], ops,
+                            replay_mod)
+    emit({"phase": "sequential", "seconds": time.perf_counter() - t0, **seq})
+
     # ---- attention kernels ---------------------------------------------
     t0 = time.perf_counter()
     attn_checks, attn_measured = attention_checks(args.seed, dev)
@@ -1502,6 +1831,30 @@ def main() -> int:
                          else main_launches[name]),
             "max_abs_err": max(c["max_abs_err"] for c in checks
                                if c["name"] == name),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None})
+    # this slice's shapes, with their launches in the s4 kernel run of the
+    # bnb phase (a node's S = 12 and 1) or in the sequential run
+    bnb_shapes = next(r for r in bnb["runs"] if r["scenario"] == "s4_memory"
+                      and r["engine"] == "kernel")["launches_by_shape"]
+    seq_shapes = next(r for r in seq["runs"]
+                      if r["engine"] == "sequential")["launches_by_shape"]
+    for key, rec in slice_measured.items():
+        name = key.split("@")[0]
+        on_bnb = key in ("alloc_objective@B=1,T=12", "alloc_objective@B=1,T=1")
+        launches = (bnb_shapes if on_bnb else seq_shapes).get(key, 0)
+        if launches == 0:
+            raise AssertionError(f"{key} was never launched on its path")
+        kernels.append({
+            "name": f"{name} ({key.split('@')[1]}, "
+                    f"{'bnb' if on_bnb else 'sequential'})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/alloc_objective/csrc/"
+                      "alloc_objective.cu",
+            "replaces": REPLACES[name],
+            "launches": launches,
+            "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None})

@@ -1,13 +1,14 @@
 """repro_torch.core — the paper's allocation model in PyTorch: problem
 container, eq. (1) objective and its kernel routing, the BB/Armijo PGD
-engine, the barrier relaxation, multistart solves, greedy rounding, the
-one-shot ``optimize`` pipeline over the paper's scenarios, the Cluster-
-Autoscaler baseline, incremental adoption and the controller state the
-fleet replay drives."""
+engine, the barrier relaxation, multistart solves, greedy rounding,
+branch-and-bound, the one-shot ``optimize`` pipeline over the paper's
+scenarios, the Cluster-Autoscaler baseline, incremental adoption and the
+controller's control loop, whose state the fleet replay drives."""
 from .catalog import Catalog, InstanceType, make_cloud_catalog
 from .controller import ControllerStep, InfrastructureOptimizationController
 from .api import (OptimizeResult, optimize, problem_from_demand,
                   problem_from_scenario)
+from .branch_bound import BnBResult, branch_and_bound
 from .autoscaler import (NodePool, default_pools_for,
                          simulate_cluster_autoscaler,
                          simulate_cluster_autoscaler_batch)
@@ -24,12 +25,13 @@ from .rounding import greedy_round, round_and_polish, scale_down
 from .scenarios import Scenario, build_scenarios, scaled_scenario
 from .solver import SolveResult, SolverConfig, phase1_point, solve_relaxation
 from .terms import BASE_TERMS, TERM_DEFS, TermDef, register_term
+from . import workloads
 
 __all__ = [
     "Catalog", "InstanceType", "make_cloud_catalog",
     "ControllerStep", "InfrastructureOptimizationController",
     "OptimizeResult", "optimize", "problem_from_demand",
-    "problem_from_scenario", "NodePool", "default_pools_for",
+    "problem_from_scenario", "BnBResult", "branch_and_bound", "NodePool", "default_pools_for",
     "simulate_cluster_autoscaler", "simulate_cluster_autoscaler_batch",
     "project_incremental", "project_l1_ball",
     "solve_incremental_info", "AllocationMetrics",
@@ -39,5 +41,5 @@ __all__ = [
     "AllocationProblem", "PenaltyParams", "greedy_round", "round_and_polish",
     "scale_down", "Scenario", "build_scenarios", "scaled_scenario",
     "SolveResult", "SolverConfig", "phase1_point", "solve_relaxation",
-    "BASE_TERMS", "TERM_DEFS", "TermDef", "register_term",
+    "BASE_TERMS", "TERM_DEFS", "TermDef", "register_term", "workloads",
 ]

@@ -1,7 +1,7 @@
 """High-level allocation pipeline — port of ``repro.core.api``:
 scenario -> problem -> multistart relaxed solves -> greedy rounding ->
-metrics, the "optimization approach" column of the paper's comparison
-methodology (§IV.B.2). Branch-and-bound is not ported yet.
+optional branch-and-bound refinement -> metrics, the "optimization
+approach" column of the paper's comparison methodology (§IV.B.2).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from . import objective as obj
+from .branch_bound import branch_and_bound
 from .catalog import Catalog
 from .metrics import AllocationMetrics, evaluate
 from .multistart import multistart_solve
@@ -29,8 +30,7 @@ class OptimizeResult:
     ``counts`` is the integer allocation (float array of whole numbers),
     ``relaxed`` the best continuous solution, ``fun`` the eq. (1) objective
     at ``counts`` (solver units), ``metrics`` the raw-unit snapshot
-    evaluation, and ``used_bnb`` whether branch-and-bound ran (never, until
-    it is ported)."""
+    evaluation, and ``used_bnb`` whether branch-and-bound ran."""
 
     counts: np.ndarray
     relaxed: np.ndarray
@@ -103,20 +103,28 @@ def optimize(catalog: Catalog, scenario: Scenario,
              device: DeviceLike = None) -> OptimizeResult:
     """The paper's "optimization approach" for one scenario: problem
     construction -> multistart relaxed solves -> greedy rounding (every
-    start; the best feasible integer merit wins) -> raw-unit metrics.
-    ``use_kernel`` (default) evaluates eq. (1) with the CUDA kernel on the
-    card; False runs the plain PyTorch version. ``use_bnb=True`` raises:
-    branch-and-bound is not ported yet."""
-    if use_bnb:
-        raise NotImplementedError("branch-and-bound is not ported yet")
+    start; the best feasible integer merit wins) -> optional
+    branch-and-bound refinement from the best relaxed start (``use_bnb``,
+    at most ``bnb_nodes`` nodes; the multistart incumbent is kept where it
+    is better) -> raw-unit metrics. ``use_kernel`` (default) evaluates
+    eq. (1) with the CUDA kernel on the card; False runs the plain PyTorch
+    version."""
     prob = problem_from_scenario(catalog, scenario, params,
                                  device=resolve_device(device))
     ms = multistart_solve(prob, n_starts=n_starts, seed=seed, cfg=cfg,
                           use_kernel=use_kernel)
-    fun = float(obj.objective(prob, ms.x_int, use_kernel))
+    x_rel = ms.best.x.cpu().numpy()
     x_int = ms.x_int.cpu().numpy()
+    if use_bnb:
+        bnb = branch_and_bound(prob, x_rel, max_nodes=bnb_nodes,
+                               use_kernel=use_kernel)
+        if not float(ms.fun_int) < bnb.fun:   # else keep the multistart's
+            x_int = bnb.x
+    fun = float(obj.objective(
+        prob, torch.as_tensor(x_int, dtype=torch.float32, device=prob.device),
+        use_kernel))
     return OptimizeResult(
-        counts=x_int.astype(np.float64),
-        relaxed=ms.best.x.cpu().numpy().astype(np.float64),
+        counts=np.asarray(x_int, np.float64),
+        relaxed=x_rel.astype(np.float64),
         metrics=evaluate(catalog, x_int, scenario.demand),
-        fun=fun, used_bnb=False)
+        fun=fun, used_bnb=use_bnb)

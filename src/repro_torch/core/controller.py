@@ -1,7 +1,11 @@
-"""Infrastructure Optimization Controller (paper §I.C, §III.E) — the state
-the batched fleet replay drives, ported from ``repro.core.controller``:
-``make_problem``, ``apply_counts`` and the step history. ``step`` (whose
-cold tick runs ``multistart_solve``) is not ported yet.
+"""Infrastructure Optimization Controller (paper §I.C, §III.E) — port of
+``repro.core.controller``: the control loop that keeps a cluster's
+allocation against a time-varying demand stream. The first tick is a cold
+multistart solve; every later tick replans under the incremental-adoption
+bound ||x - x_cur||_1 <= delta_max, warm-started from the current counts;
+``replan_on_failure`` relaxes the bound by the failed nodes. The batched
+fleet replay drives the same state through :meth:`make_problem` and
+:meth:`apply_counts`. Anytime budgets and solver traces are not ported.
 """
 from __future__ import annotations
 
@@ -9,12 +13,16 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..device import DeviceLike
 from .api import problem_from_demand
 from .catalog import Catalog
+from .incremental import solve_incremental_info
 from .metrics import AllocationMetrics, evaluate
+from .multistart import multistart_solve
 from .problem import AllocationProblem, PenaltyParams
+from .rounding import round_and_polish
 
 
 @dataclass
@@ -34,9 +42,12 @@ class ControllerStep:
 
 @dataclass
 class InfrastructureOptimizationController:
-    """Per-cluster control-loop state: the current allocation under the L1
-    churn bound ``delta_max`` and its history. ``device`` is where
-    :meth:`make_problem` builds each tick's problem (None means "cuda")."""
+    """Stateful per-cluster control loop: cold multistart solve on the first
+    tick, then warm-started incremental solves under the L1 churn bound
+    ``delta_max``. ``device`` is where :meth:`make_problem` builds each
+    tick's problem and the solves run (None means "cuda"); ``use_kernel``
+    (default) evaluates eq. (1) with the CUDA kernel there, False with the
+    plain PyTorch version."""
 
     catalog: Catalog
     delta_max: float = 8.0                       # max L1 churn per tick
@@ -50,6 +61,14 @@ class InfrastructureOptimizationController:
     spot_idx: Optional[np.ndarray] = None        # (S,) catalog spot-twin idx
     spot_availability: Optional[np.ndarray] = None   # (T', S) in {0, 1}
     device: DeviceLike = None
+    use_kernel: bool = True
+
+    # not a dataclass field: the last warm solve's PGD iteration count,
+    # recorded by step() (0 until a warm solve has run)
+    _last_solver_iters = 0
+    # not a dataclass field: the last solve's RELAXED solution (cold and
+    # warm); the integer counts are a rounding of it
+    last_x_rel: Optional[np.ndarray] = None
 
     def make_problem(self, demand: np.ndarray) -> AllocationProblem:
         """This tick's AllocationProblem (the tick index is
@@ -68,10 +87,38 @@ class InfrastructureOptimizationController:
                                    unavailable_idx=unavailable,
                                    device=self.device)
 
+    def cold_start_counts(self, prob: AllocationProblem) -> np.ndarray:
+        """First-tick allocation: full multistart solve, no churn bound; the
+        best rounded start (``optimize`` without branch-and-bound)."""
+        ms = multistart_solve(prob, n_starts=self.n_starts,
+                              use_kernel=self.use_kernel)
+        self.last_x_rel = ms.best.x.cpu().numpy().astype(np.float64)
+        return ms.x_int.cpu().numpy().astype(np.float64)
+
+    def incremental_counts(self, prob: AllocationProblem,
+                           x_init: Optional[np.ndarray] = None) -> np.ndarray:
+        """Warm-tick allocation: incremental solve from the current counts
+        under the L1 churn bound, then greedy rounding. ``x_init``
+        optionally overrides the warm start; the solve's iteration count is
+        kept on ``_last_solver_iters``."""
+        f32 = dict(dtype=torch.float32, device=prob.device)
+        x_init = None if x_init is None else torch.as_tensor(x_init, **f32)
+        x_rel, iters = solve_incremental_info(
+            prob, torch.as_tensor(self.x_current, **f32),
+            torch.as_tensor(self.delta_max, **f32), x_init=x_init,
+            use_kernel=self.use_kernel)
+        self._last_solver_iters = int(iters)
+        self.last_x_rel = x_rel.cpu().numpy().astype(np.float64)
+        # rounding may exceed the churn bound slightly when demand jumps;
+        # that's the feasibility-first tradeoff (shortage beats churn).
+        return round_and_polish(prob, x_rel, use_kernel=self.use_kernel
+                                ).cpu().numpy().astype(np.float64)
+
     def apply_counts(self, demand: np.ndarray, counts: np.ndarray,
                      replanned: bool, solver_iters: int = 0) -> ControllerStep:
-        """Record an allocation computed for this tick (by the batched fleet
-        engine): churn and metrics, advance ``x_current``, append history."""
+        """Record an allocation computed for this tick (by :meth:`step`, or
+        by the batched fleet engine): churn and metrics, advance
+        ``x_current``, append history."""
         demand = np.asarray(demand, np.float64)
         x = np.asarray(counts, np.float64)
         churn = float(np.abs(x - (self.x_current if self.x_current is not None
@@ -88,9 +135,40 @@ class InfrastructureOptimizationController:
         self.history.append(step)
         return step
 
-    def step(self, demand: np.ndarray) -> ControllerStep:
-        """The sequential control loop's tick: not ported yet (its cold
-        tick runs ``multistart_solve``)."""
-        raise NotImplementedError(
-            "InfrastructureOptimizationController.step is not ported yet; "
-            'use replay_fleet(..., replay_mode="batched")')
+    def step(self, demand: np.ndarray,
+             x_init: Optional[np.ndarray] = None) -> ControllerStep:
+        """Advance one tick: solve for this demand (cold multistart on the
+        first call, warm-started incremental solve after) and record it."""
+        demand = np.asarray(demand, np.float64)
+        prob = self.make_problem(demand)
+        if self.x_current is None:
+            x, replanned = self.cold_start_counts(prob), True
+            self._last_solver_iters = 0
+        else:
+            x, replanned = self.incremental_counts(prob, x_init=x_init), False
+        return self.apply_counts(demand, x, replanned,
+                                 solver_iters=self._last_solver_iters)
+
+    def replan_on_failure(self, failed_counts: np.ndarray,
+                          demand: np.ndarray) -> ControllerStep:
+        """Remove failed nodes from the current allocation, then replan with
+        the churn bound relaxed by the failure size (we must at least
+        replace what died)."""
+        if self.x_current is None:
+            raise RuntimeError("controller has no allocation yet")
+        failed = np.minimum(np.asarray(failed_counts, np.float64),
+                            self.x_current)
+        self.x_current = self.x_current - failed
+        old_delta = self.delta_max
+        self.delta_max = float(old_delta + failed.sum())
+        try:
+            out = self.step(demand)
+        finally:
+            self.delta_max = old_delta
+        return out
+
+    def total_cost(self) -> float:
+        return sum(s.metrics.total_cost for s in self.history)
+
+    def total_churn(self) -> float:
+        return sum(s.churn for s in self.history)

@@ -1,11 +1,13 @@
 """repro_torch.fleet — the batched fleet solver and trace replay: stack
 tenant problems (``batching``), solve them cold (``solve_fleet``) and warm
-(``solve_fleet_step``), and replay demand traces (``replay_fleet``)
-against the Cluster-Autoscaler baseline on the same traces."""
+(``solve_fleet_step``), and replay demand traces (``replay_fleet``, its
+sequential and batched engines; ``replay_tenant`` for one tenant) against
+the Cluster-Autoscaler baseline on the same traces."""
 from .batching import (FleetBatch, bucket_dims, ceil_pow2, embed_solutions,
                        stack_problems, tenant_problem)
 from .metrics import FleetReplayMetrics, TenantReplayMetrics
-from .replay import FleetReplayResult, TenantSpec, replay_fleet
+from .replay import (FleetReplayResult, TenantReplay, TenantSpec,
+                     replay_fleet, replay_tenant)
 from .solver import (FleetSolveResult, FleetStepResult, make_fleet_starts,
                      solve_fleet, solve_fleet_step)
 from .traces import TRACE_KINDS, make_trace
@@ -14,7 +16,7 @@ __all__ = [
     "FleetBatch", "bucket_dims", "ceil_pow2", "embed_solutions",
     "stack_problems", "tenant_problem",
     "FleetReplayMetrics", "TenantReplayMetrics", "FleetReplayResult",
-    "TenantSpec", "replay_fleet", "FleetSolveResult", "FleetStepResult",
-    "make_fleet_starts", "solve_fleet", "solve_fleet_step", "TRACE_KINDS",
+    "TenantReplay", "TenantSpec", "replay_fleet", "replay_tenant",
+    "FleetSolveResult", "FleetStepResult", "make_fleet_starts", "solve_fleet", "solve_fleet_step", "TRACE_KINDS",
     "make_trace",
 ]

@@ -1,19 +1,23 @@
-"""Trace-driven fleet replay — port of ``repro.fleet.replay``'s batched
-engine with the myopic controller.
+"""Trace-driven fleet replay — port of ``repro.fleet.replay``'s two
+engines with the myopic controller.
 
-``replay_fleet(catalog, tenants, replay_mode="batched",
-run_ca_baseline=False)`` steps every tenant through its demand trace with
-one batched solve per shape bucket per tick: tick 0 is a cold
-``solve_fleet`` (per-tenant starts drawn at true shape, seed 0), every
-later tick a warm ``solve_fleet_step`` from the previous tick's
-allocation under each tenant's L1 churn bound. Tenants are grouped once
-into power-of-two shape buckets (``bucket_dims``) plus ``n_starts``.
-Ragged traces freeze a finished tenant in its batch lane: its last
-allocation stays as a fixed warm start and it records no more history.
+``replay_mode="sequential"`` (the reference's default) steps each tenant's
+``InfrastructureOptimizationController`` through its trace, one solve per
+tenant per tick on the device (``replay_tenant`` replays one tenant).
+``replay_mode="batched"`` steps every tenant with one batched solve per
+shape bucket per tick: tick 0 is a cold ``solve_fleet`` (per-tenant
+starts drawn at true shape, seed 0), every later tick a warm
+``solve_fleet_step`` from the previous tick's allocation under each
+tenant's L1 churn bound. Tenants are grouped once into power-of-two shape
+buckets (``bucket_dims``) plus ``n_starts``. Ragged traces freeze a
+finished tenant in its batch lane: its last allocation stays as a fixed
+warm start and it records no more history. With ``hot_loop="vmap"`` the
+batched engine solves each tenant alone and commits exactly the
+sequential engine's allocations, ragged horizons included.
 
-Controllers build each tick's per-tenant problem on the host;
-``stack_problems`` moves each bucket's stack to the device in one copy
-per leaf, and the solve runs there.
+In the batched engine the controllers build each tick's per-tenant
+problem on the host; ``stack_problems`` moves each bucket's stack to the
+device in one copy per leaf, and the solve runs there.
 
 The Cluster-Autoscaler baseline runs on the host (numpy, as in the
 reference and the paper) over the same traces. Each tenant's node pools
@@ -25,9 +29,9 @@ through ``simulate_cluster_autoscaler_batch``, one call per tick per
 distinct catalog; ``ca_engine="sequential"`` loops the per-tenant oracle,
 and the two agree tick for tick.
 
-Not ported yet (each raises ``NotImplementedError``): the sequential
-engine, the MPC controller, health monitoring, anytime deadlines,
-solver-trace capture and telemetry spans.
+Not ported yet (each raises ``NotImplementedError``): the MPC controller,
+health monitoring, anytime deadlines, solver-trace capture and telemetry
+spans.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ from ..core.problem import PenaltyParams
 from ..device import DeviceLike, resolve_device
 from .batching import bucket_dims, embed_solutions, stack_problems
 from .metrics import FleetReplayMetrics, TenantReplayMetrics, tenant_metrics
-from .solver import make_fleet_starts, solve_fleet, solve_fleet_step
+from .solver import (_use_kernel, make_fleet_starts, solve_fleet,
+                     solve_fleet_step)
 
 HOST = torch.device("cpu")
 
@@ -216,14 +221,17 @@ def _replay_ca_fleet(catalog: Catalog, tenants: Sequence[TenantSpec],
     return out
 
 
-def _make_controller(catalog: Catalog, spec: TenantSpec
+def _make_controller(catalog: Catalog, spec: TenantSpec,
+                     device: torch.device = HOST, use_kernel: bool = True
                      ) -> InfrastructureOptimizationController:
+    """One tenant's controller; its problems are built on ``device`` (the
+    host for the batched engine, which stacks them)."""
     return InfrastructureOptimizationController(
         catalog=spec.catalog or catalog, delta_max=spec.delta_max,
         params=spec.params, n_starts=spec.n_starts,
         allowed_idx=spec.allowed_idx, terms=spec.terms,
         spot_idx=spec.spot_idx, spot_availability=spec.spot_availability,
-        device=HOST)
+        device=device, use_kernel=use_kernel)
 
 
 def _assemble_replay(spec: TenantSpec, steps: List[ControllerStep],
@@ -237,6 +245,22 @@ def _assemble_replay(spec: TenantSpec, steps: List[ControllerStep],
     ca_met, ca_counts = ca if ca is not None else (None, None)
     return TenantReplay(spec=spec, steps=steps, metrics=met,
                         ca_metrics=ca_met, ca_counts=ca_counts)
+
+
+def replay_tenant(catalog: Catalog, spec: TenantSpec, *,
+                  run_ca_baseline: bool = True,
+                  ca_expander: str = "random",
+                  ca_mode: str = "wave",
+                  use_kernel: bool = True,
+                  device: DeviceLike = None) -> TenantReplay:
+    """Sequential replay of ONE tenant: a controller solve per tick on
+    ``device`` (``use_kernel`` as the controller's) plus, optionally, the
+    CA baseline on the same trace."""
+    ctl = _make_controller(catalog, spec, resolve_device(device), use_kernel)
+    steps = [ctl.step(demand) for demand in np.asarray(spec.trace, np.float64)]
+    ca = (_ca_baseline(catalog, spec, ca_expander, ca_mode)
+          if run_ca_baseline else None)
+    return _assemble_replay(spec, steps, ca)
 
 
 def _replay_batch_groups(ctls: Sequence[InfrastructureOptimizationController],
@@ -332,21 +356,28 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
                  device: DeviceLike = None) -> FleetReplayResult:
     """Replay every tenant; returns per-tenant histories + fleet aggregates.
 
-    The port runs ``replay_mode="batched"`` with the myopic controller;
-    the defaults are the reference's, and what is not ported yet raises
-    ``NotImplementedError``. ``run_ca_baseline`` also replays the Cluster-
+    The port runs both engines with the myopic controller; the defaults
+    are the reference's, and what is not ported yet raises
+    ``NotImplementedError``. ``replay_mode="sequential"`` steps one
+    controller per tenant, one solve per tenant per tick;
+    ``"batched"`` one solve per shape bucket per tick (module docstring).
+    ``run_ca_baseline`` also replays the Cluster-
     Autoscaler baseline on the same traces (``FleetReplayMetrics.baseline``):
     ``ca_engine="vectorized"`` steps every tenant at once per tick,
     ``"sequential"`` loops the per-tenant oracle; ``ca_expander`` and
     ``ca_mode`` are ``simulate_cluster_autoscaler``'s ``expander`` and
     ``mode``. ``warm_start`` picks the
     warm tick's start: the previous integer allocation (``"counts"``) or the
-    previous relaxed solution (``"relaxed"``). ``solver_steps`` is each
-    warm tick's PGD budget. ``hot_loop="kernel"`` evaluates eq. (1) with
-    the CUDA kernel on the card at every tick; ``"ref"`` runs the plain
-    PyTorch eq. (1) at every tick instead (in the reference it picks only
-    the cold solve's engine), so a whole replay can be compared with the
-    kernel's."""
+    previous relaxed solution (``"relaxed"``); ``solver_steps`` is each
+    warm tick's PGD budget. Both are the batched engine's: the sequential
+    controller warm-starts from its counts with the default 600 steps.
+    ``hot_loop="kernel"`` evaluates eq. (1) with the CUDA kernel on the card
+    at every tick; ``"ref"`` runs the plain PyTorch eq. (1) at every tick
+    instead (in the reference it picks only the cold solve's engine), so a
+    whole replay can be compared with the kernel's; ``"vmap"`` solves each
+    tenant alone with the kernel, the batched engine's equivalence mode.
+    In the sequential engine ``"ref"`` gives the controllers
+    ``use_kernel=False`` and the other two ``use_kernel=True``."""
     if len(tenants) == 0:
         raise ValueError("replay_fleet needs at least one TenantSpec; got an "
                          "empty tenant list")
@@ -358,8 +389,6 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
         raise ValueError(f"unknown warm_start {warm_start!r}")
     if ca_engine not in ("vectorized", "sequential"):
         raise ValueError(f"unknown ca_engine {ca_engine!r}")
-    if replay_mode == "sequential":
-        raise _not_ported('replay_mode="sequential"')
     if controller == "mpc":
         raise _not_ported('controller="mpc"')
     if capture_solver_trace:
@@ -369,9 +398,15 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     if anytime is not None:
         raise _not_ported("anytime deadlines")
     dev = resolve_device(device)
-    histories = _replay_fleet_batched(catalog, tenants, warm_start=warm_start,
-                                      solver_steps=solver_steps,
-                                      hot_loop=hot_loop, device=dev)
+    if replay_mode == "sequential":   # the reference's loop, no observers
+        use_kernel = _use_kernel(hot_loop)
+        histories = [replay_tenant(catalog, spec, run_ca_baseline=False,
+                                   use_kernel=use_kernel, device=dev).steps
+                     for spec in tenants]
+    else:
+        histories = _replay_fleet_batched(
+            catalog, tenants, warm_start=warm_start,
+            solver_steps=solver_steps, hot_loop=hot_loop, device=dev)
     if not run_ca_baseline:
         cas = [None] * len(tenants)
     elif ca_engine == "vectorized":

@@ -16,7 +16,14 @@ value-only form where no gradient is needed), so no plain eq. (1) runs
 on a CUDA tensor in ``hot_loop="kernel"``. ``hot_loop="ref"`` runs the
 plain PyTorch versions instead, on any device — the path a run is
 compared with. On a CPU tensor both run the plain versions.
-``hot_loop="vmap"`` (vmap of the single-problem solver) is not ported.
+
+``hot_loop="vmap"`` is the reference's "each lane runs the unmodified
+single-problem solver": a Python loop over the tenants, each solved alone
+at its true shape (cold: ``core.multistart``'s relax-and-round of its
+starts; warm: ``solve_incremental_info`` and ``round_and_polish``) with
+the kernel's single-problem form, then embedded in the padded result. It
+commits exactly what the sequential controller commits — the equivalence
+mode, not a fast one.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch
 
 from ..core import objective as obj
 from ..core.incremental import solve_incremental_info
-from ..core.multistart import make_starts
+from ..core.multistart import _solve_batch, make_starts
 from ..core.pgd import SYNC_EVERY, ladder_ratios
 from ..core.problem import AllocationProblem, problem_to
 from ..core.rounding import round_and_polish
@@ -36,7 +43,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.alloc_objective import ops
 from .batching import FleetBatch, stack_problems, tenant_problem
 
-HOT_LOOPS = ("kernel", "ref")
+HOT_LOOPS = ("kernel", "ref", "vmap")
 
 
 class FleetSolveResult(NamedTuple):
@@ -66,12 +73,12 @@ class FleetStepResult(NamedTuple):
 
 
 def _use_kernel(hot_loop: str) -> bool:
-    if hot_loop == "vmap":
-        raise NotImplementedError('hot_loop="vmap" is not ported yet')
+    """Whether ``hot_loop`` evaluates eq. (1) with the kernel ("kernel" and
+    "vmap") or with the plain version ("ref")."""
     if hot_loop not in HOT_LOOPS:
         raise ValueError(f"hot_loop must be one of {HOT_LOOPS}, "
                          f"got {hot_loop!r}")
-    return hot_loop == "kernel"
+    return hot_loop != "ref"
 
 
 def _pgd_fleet(prob, X0, barrier_t, penalty_w, strict, cfg: SolverConfig,
@@ -165,14 +172,48 @@ def _relax(prob, starts, cfg: SolverConfig, use_kernel: bool):
 
 def _solve_fleet_impl(prob, starts, cfg: SolverConfig, use_kernel: bool
                       ) -> FleetSolveResult:
-    B = starts.shape[0]
     x, fun, feas_rel, strict, iters = _relax(prob, starts, cfg, use_kernel)
     # round EVERY start (relaxed merit predicts integer cost poorly)
     x_int = round_and_polish(prob, x, use_kernel=use_kernel)       # (B, S, n)
     f_int = obj.objective(prob, x_int, use_kernel=use_kernel)
     feas_int = obj.is_feasible(prob, x_int, 1e-3)
+    return _best_per_tenant(x, fun, feas_rel, strict, iters, x_int, f_int,
+                            feas_int)
 
-    rows = torch.arange(B, device=starts.device)
+
+def _solve_fleet_lanes(batch: FleetBatch, starts, cfg: SolverConfig
+                       ) -> FleetSolveResult:
+    """``hot_loop="vmap"``: every tenant's starts relaxed and rounded by
+    the single-problem solver at the tenant's true shape (what
+    ``multistart_solve`` does with the same starts), then zero-embedded
+    into the padded (B, S, n_max) result."""
+    B, S, n_max = starts.shape
+    dev = starts.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.zeros((B, S, n_max), **f32)
+    x_int = torch.zeros((B, S, n_max), **f32)
+    fun, f_int = torch.zeros((B, S), **f32), torch.zeros((B, S), **f32)
+    flags = lambda: torch.zeros((B, S), dtype=torch.bool, device=dev)
+    feas_rel, strict, feas_int = flags(), flags(), flags()
+    iters = torch.zeros((), dtype=torch.int64, device=dev)
+    for b in range(B):
+        n = int(batch.n_true[b])
+        res, xi, fi, ok = _solve_batch(tenant_problem(batch, b),
+                                       starts[b, :, :n].contiguous(), cfg)
+        x[b, :, :n], x_int[b, :, :n] = res.x, xi
+        fun[b], f_int[b], feas_int[b] = res.fun, fi, ok
+        feas_rel[b], strict[b] = res.feasible, res.used_barrier
+        iters = iters + res.iters.sum()
+    return _best_per_tenant(x, fun, feas_rel, strict, iters, x_int, f_int,
+                            feas_int)
+
+
+def _best_per_tenant(x, fun, feas_rel, strict, iters, x_int, f_int,
+                     feas_int) -> FleetSolveResult:
+    """Each tenant's winner: the first best feasible integer merit, and the
+    best feasible relaxed merit kept for diagnostics."""
+    B = x.shape[0]
+    rows = torch.arange(B, device=x.device)
     j = torch.where(feas_int, f_int, f_int + 1e12).argmin(1)       # (B,)
     i = torch.where(feas_rel, fun, fun + 1e12).argmin(1)
     return FleetSolveResult(
@@ -211,7 +252,9 @@ def solve_fleet(
     (B, S, n) start points. ``hot_loop="kernel"`` (the default) evaluates
     eq. (1) with the CUDA kernel on the card; ``"ref"`` with the plain
     PyTorch version. The step acceptance is chaotic in the last ulps, so the
-    two agree to solver tolerance, not bit for bit."""
+    two agree to solver tolerance, not bit for bit. ``"vmap"`` solves each
+    tenant alone with the single-problem solver (module docstring): lane b
+    is bit for bit ``multistart_solve`` of tenant b from the same starts."""
     use_kernel = _use_kernel(hot_loop)
     dev = resolve_device(device)
     batch = _as_batch(fleet, dev)
@@ -219,6 +262,8 @@ def solve_fleet(
     if starts is None:
         starts = make_fleet_starts(batch, n_starts, seed)
     starts = torch.as_tensor(starts, dtype=torch.float32, device=dev)
+    if hot_loop == "vmap":
+        return _solve_fleet_lanes(batch, starts, cfg)
     return _solve_fleet_impl(batch.problem, starts, cfg, use_kernel)
 
 
@@ -254,25 +299,29 @@ def solve_fleet_step(
     ``active`` is the (B,) ragged-horizon liveness mask (default: the
     batch's own): frozen lanes come back with ``x == x_int == x_current``.
     ``hot_loop`` chooses the kernel or the plain eq. (1), as in
-    :func:`solve_fleet`."""
+    :func:`solve_fleet`; ``"vmap"`` solves each live tenant alone at its
+    true shape, as the sequential controller does."""
     use_kernel = _use_kernel(hot_loop)
     dev = resolve_device(device)
-    if isinstance(fleet, FleetBatch):
-        if active is None:
-            active = fleet.active_mask
-        fleet = fleet.problem
-    prob = problem_to(fleet, dev)
+    batch = _as_batch(fleet, dev)
+    if active is None:
+        active = batch.active_mask
+    prob = batch.problem
     B = prob.c.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     x_current = torch.as_tensor(x_current, **f32)
     delta_max = torch.broadcast_to(torch.as_tensor(delta_max, **f32), (B,))
     x_init = x_current if x_init is None else torch.as_tensor(x_init, **f32)
-    live = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
-            else torch.as_tensor(np.asarray(active, bool), device=dev))
-    x_rel, iters = solve_incremental_info(prob, x_current, delta_max,
-                                          x_init=x_init, steps=steps,
-                                          use_kernel=use_kernel)
-    x_int = round_and_polish(prob, x_rel, use_kernel=use_kernel)
+    active = np.asarray(active, bool)
+    live = torch.as_tensor(active, device=dev)
+    if hot_loop == "vmap":
+        x_rel, x_int, iters = _step_lanes(batch, x_current, delta_max,
+                                          x_init, steps, active)
+    else:
+        x_rel, iters = solve_incremental_info(prob, x_current, delta_max,
+                                              x_init=x_init, steps=steps,
+                                              use_kernel=use_kernel)
+        x_int = round_and_polish(prob, x_rel, use_kernel=use_kernel)
     # frozen lanes keep their warm start as the answer
     x_rel = torch.where(live[:, None], x_rel, x_current)
     x_int = torch.where(live[:, None], x_int, x_current)
@@ -281,3 +330,21 @@ def solve_fleet_step(
         fun_int=obj.objective(prob, x_int, use_kernel=use_kernel),
         feasible=obj.is_feasible(prob, x_int, 1e-3),
         iters=torch.where(live, iters, torch.zeros_like(iters)))
+
+
+def _step_lanes(batch: FleetBatch, x_current, delta_max, x_init, steps: int,
+                live: np.ndarray):
+    """``hot_loop="vmap"``'s warm tick: each live tenant's incremental solve
+    and rounding alone at its true shape, zero-embedded; frozen lanes keep
+    zeros (the caller puts their warm start back)."""
+    x_rel = torch.zeros_like(x_current)
+    x_int = torch.zeros_like(x_current)
+    iters = torch.zeros(batch.B, dtype=torch.int64, device=x_current.device)
+    for b in np.nonzero(live)[0]:
+        n = int(batch.n_true[b])
+        pb = tenant_problem(batch, b)
+        xr, it = solve_incremental_info(pb, x_current[b, :n], delta_max[b],
+                                        x_init=x_init[b, :n], steps=steps)
+        x_rel[b, :n], iters[b] = xr, it
+        x_int[b, :n] = round_and_polish(pb, xr)
+    return x_rel, x_int, iters

@@ -47,7 +47,8 @@ def test_no_jax_or_repro_import_in_source():
         r"^\s*(import\s+(jax|jaxlib|repro)\b|from\s+(jax|jaxlib|repro)\b)",
         re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "mma_probe.py"]
+                                          ROOT / "mma_probe.py",
+                                          ROOT / "bnb_spread.py"]
     assert len(files) > 20
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]

@@ -52,13 +52,15 @@ def _points(B, T, n, device, seed):
 
 
 # (B, T, m, n, p): the replay's four shapes at the bucketed n = 2048; the
-# ragged catalog n = 1880; n % 4 != 0 (the kernel's 4-byte path); n < 32;
+# ragged catalog n = 1880, also at B = 1 with T = 1 and 12 (the sequential
+# controller's warm tick); n % 4 != 0 (the kernel's 4-byte path); n < 32;
 # stages that must be tiled at m = p = 8 (17 n floats over 227 KB), on the
 # 16-byte path (n = 4096) and the 4-byte path (n = 3501); m, p over
 # {2, 3, 4, 8}, 3 through the runtime-bounded instantiation
 @pytest.mark.parametrize("B,T,m,n,p", [
     (64, 48, 4, 2048, 2), (64, 12, 4, 2048, 2), (64, 4, 4, 2048, 2),
-    (64, 1, 4, 2048, 2), (2, 1, 4, 1880, 2), (3, 5, 3, 37, 3),
+    (64, 1, 4, 2048, 2), (2, 1, 4, 1880, 2), (1, 1, 4, 1880, 2),
+    (1, 12, 4, 1880, 2), (3, 5, 3, 37, 3),
     (1, 300, 8, 513, 8), (5, 9, 4, 513, 2), (4, 6, 2, 7, 2),
     (3, 3, 4, 16, 4), (3, 5, 8, 4096, 8), (2, 3, 8, 3501, 8),
     (6, 7, 2, 300, 8), (6, 7, 8, 300, 2), (6, 7, 3, 300, 4),
@@ -75,10 +77,14 @@ def test_fleet_kernel_matches_plain(cuda, B, T, m, n, p):
 
 
 # S = 72 and 6: the scenario pipeline's shapes (6 starts x the 12-rung
-# Armijo ladder, and the 6 iterates' gradient) over the full catalog
+# Armijo ladder, and the 6 iterates' gradient) over the full catalog; 12
+# and 1: a branch-and-bound node's ladder and gradient; 48 and 4: the
+# sequential controller's cold tick (4 starts)
 @pytest.mark.parametrize("S,m,n,p", [(13, 4, 37, 2), (128, 4, 1880, 2),
                                      (1, 2, 16, 2), (72, 4, 1880, 2),
-                                     (6, 4, 1880, 2)])
+                                     (6, 4, 1880, 2), (12, 4, 1880, 2),
+                                     (1, 4, 1880, 2), (48, 4, 1880, 2),
+                                     (4, 4, 1880, 2)])
 def test_single_kernel_matches_plain(cuda, S, m, n, p):
     prob = _problem(S, m, n, p, cuda)
     gen = torch.Generator(device=cuda).manual_seed(S)
@@ -178,3 +184,54 @@ def test_optimize_runs_the_single_problem_kernel(cuda):
         np.testing.assert_array_equal(kern.counts, np.round(kern.counts))
         assert (np.array_equal(kern.counts, plain.counts)
                 or abs(kern.fun - plain.fun) <= 1e-4 * abs(plain.fun))
+
+
+def test_branch_and_bound_kernel_against_plain(cuda):
+    """The search on the toy problem with the kernel and plain: only the
+    single-problem form runs, and the two find allocations of the same
+    objective (tests/fleet/test_solve_fleet.py:112-117) and feasibility."""
+    from repro_torch.core import SolverConfig, branch_and_bound
+    from repro_torch.testing import make_toy_problem
+    prob = make_toy_problem(seed=0, device=cuda)
+    cfg = SolverConfig(max_iters=200, barrier_rounds=2)
+    ops.reset_launches()
+    kern = branch_and_bound(prob, max_nodes=16, cfg=cfg)
+    launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    plain = branch_and_bound(prob, max_nodes=16, cfg=cfg, use_kernel=False)
+    assert launches["alloc_objective"] > 0
+    assert launches["alloc_objective_fleet"] == 0
+    assert launches["alloc_objective_fleet_value"] == 0
+    assert not any(ops.LAUNCHES.values())
+    np.testing.assert_allclose(kern.fun, plain.fun, rtol=0.05)
+    for res in (kern, plain):
+        x = torch.as_tensor(res.x, dtype=torch.float32, device=cuda)
+        assert bool(obj.is_feasible(prob, x, 1e-3))
+        np.testing.assert_array_equal(res.x, np.round(res.x))
+    assert kern.incumbent_updates >= 1
+
+
+def test_sequential_replay_equals_vmap_on_the_card(cuda):
+    """Two tenants, three ticks: the sequential engine and the batched one
+    with hot_loop="vmap" commit the same counts bit for bit (the kernel
+    has no atomics), and both launch the kernel."""
+    from repro_torch.core import Catalog, make_cloud_catalog
+    from repro_torch.fleet import TenantSpec, make_trace, replay_fleet
+    cat = Catalog(make_cloud_catalog().instances[::40])
+    specs = [TenantSpec(name=k, trace=make_trace(k, np.array(
+        [8, 16, 4, 100.0]), 3, seed=i), n_starts=2)
+        for i, k in enumerate(("diurnal", "ramp"))]
+    runs = []
+    for mode, hot_loop in (("sequential", "kernel"), ("batched", "vmap")):
+        ops.reset_launches()
+        runs.append(replay_fleet(cat, specs, replay_mode=mode,
+                                 hot_loop=hot_loop, run_ca_baseline=False,
+                                 device=cuda))
+        assert ops.LAUNCHES["alloc_objective"] > 0
+        assert ops.LAUNCHES["alloc_objective_fleet"] > 0
+    seq, lanes = runs
+    for a, b in zip(seq.tenants, lanes.tenants):
+        assert len(a.steps) == len(b.steps) == 3
+        for sa, sb in zip(a.steps, b.steps):
+            np.testing.assert_array_equal(sa.counts, sb.counts)
+        assert a.metrics == b.metrics

@@ -284,9 +284,18 @@ def test_plain_switch_equals_default_on_the_cpu(catalogs):
     assert a.fun == b.fun
 
 
-def test_branch_and_bound_is_not_ported(catalogs):
+def test_branch_and_bound_runs(catalogs):
+    """optimize(use_bnb=True) (it raised until branch-and-bound was
+    ported) refines the multistart answer and never commits a worse one;
+    tests/test_torch_bnb.py holds it to the reference."""
     _, tcat = catalogs
-    with pytest.raises(NotImplementedError,
-                       match="branch-and-bound is not ported yet"):
-        tcore.optimize(tcat, tcore.build_scenarios(tcat)[0], use_bnb=True,
-                       device="cpu")
+    s = tcore.build_scenarios(tcat)[3]
+    cfg = tcore.SolverConfig(max_iters=60, barrier_rounds=1)
+    ms = tcore.optimize(tcat, s, n_starts=3, cfg=cfg, device="cpu")
+    bnb = tcore.optimize(tcat, s, n_starts=3, cfg=cfg, use_bnb=True,
+                         bnb_nodes=2, device="cpu")
+    assert bnb.used_bnb is True and ms.used_bnb is False
+    assert bnb.metrics.satisfied
+    np.testing.assert_array_equal(bnb.counts, np.round(bnb.counts))
+    np.testing.assert_array_equal(bnb.relaxed, ms.relaxed)
+    assert bnb.fun <= ms.fun

@@ -112,8 +112,23 @@ def test_ca_baseline_runs_by_default():
     assert "savings vs CA" in out.metrics.summary()
 
 
+def test_sequential_mode_runs_by_default():
+    """replay_fleet's default replay_mode="sequential" (it raised until the
+    sequential engine was ported): one controller per tenant, every tick
+    recorded, the CA baseline beside it."""
+    cat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
+    specs = _specs(tfleet.TenantSpec, tfleet.make_trace, ticks=2)[:2]
+    out = tfleet.replay_fleet(cat, specs, device="cpu")
+    assert out.metrics.replay_mode == "sequential"
+    assert [len(r.steps) for r in out.tenants] == [2, 2]
+    assert [[s.replanned for s in r.steps] for r in out.tenants] == [
+        [True, False]] * 2
+    assert len(out.metrics.baseline) == 2
+    assert "savings vs CA" in out.metrics.summary()
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(replay_mode="sequential", run_ca_baseline=False),
+    dict(replay_mode="sequential", run_ca_baseline=False, health=object()),
     dict(replay_mode="batched", controller="mpc", run_ca_baseline=False),
     dict(replay_mode="batched", run_ca_baseline=False,
          capture_solver_trace=True),

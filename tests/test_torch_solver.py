@@ -211,10 +211,16 @@ def test_solve_fleet_step_matches_reference(fleet):
                                rtol=0.05)
 
 
-def test_solve_fleet_accepts_lists_and_rejects_unported_loops(fleet):
+def test_solve_fleet_accepts_lists_and_rejects_unknown_loops(fleet):
+    """A list of problems is stacked; hot_loop="vmap" (it raised until it
+    was ported) solves each tenant alone, as multistart_solve does."""
     _, tprobs, _, _ = fleet
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfleet.solve_fleet(tprobs, hot_loop="vmap", device="cpu")
+    small = tcore.SolverConfig(max_iters=20, barrier_rounds=1)
+    lanes = tfleet.solve_fleet(tprobs, n_starts=2, cfg=small,
+                               hot_loop="vmap", device="cpu")
+    ms = tcore.multistart_solve(tprobs[1], n_starts=2, cfg=small)
+    assert torch.equal(lanes.x_int[1], ms.x_int)
+    assert torch.equal(lanes.fun_int[1], ms.fun_int)
     with pytest.raises(ValueError):
         tfleet.solve_fleet(tprobs, hot_loop="pallas", device="cpu")
     res = tfleet.solve_fleet(tprobs, n_starts=2, device="cpu",
