@@ -96,8 +96,9 @@ Phases, one JSON object per line:
              answer the reference reaches under a one-ulp change of the
              problem (REF_S4_BNB; ``bnb_spread.py`` measures the port's
              spread).
-   sequential — the control loop: the first four tenants of the replay
-             phase (one per trace kind) over the full catalog, 4 ticks, CA
+   sequential — the control loop: the first two tenants of the replay
+             phase (diurnal, flash_crowd; four until the serving phase
+             needed the time) over the full catalog, 4 ticks, CA
              off, replayed with ``replay_mode="sequential"``, with
              ``"batched"`` and ``hot_loop="vmap"``, and with ``"batched"``
              and ``hot_loop="kernel"``; wall, cold and warm solve seconds
@@ -106,6 +107,27 @@ Phases, one JSON object per line:
              tenant at every tick, bit for bit, and the kernel replay lies
              within rtol 0.05 per tenant and 2e-2 over the fleet of the
              sequential one, with identical satisfaction flags.
+   serve_alloc — the online allocation service (``repro_torch.serve``):
+             the demo session of ``python -m repro_torch.serve`` (full
+             catalog, 8 lanes, 24 ticks, flash-crowd demand, a departure
+             at tick 12) (a) with the kernel and plain, no deadline: the
+             same decisions, each objective within 0.05 and the sum within
+             2e-2, equal feasibility and staleness; p50 and p99 tick
+             latency, cold-join and warm-tick seconds, launches by entry
+             and shape; (b) with the kernel under half of (a)'s median
+             warm-tick time: every decision feasible, one at least
+             truncated, no warm solve past its budget by more than its
+             longest chunk and its fixed work; miss and truncation rates;
+             (c) the degradation sweep of benchmarks/serve_bench.py at the
+             full catalog (budgets 0.5-64 ms, chunks of 8, a fake clock at
+             0.25 ms a reading, demand x3, delta_max 64), kernel and plain:
+             the bench's five checks for each, the two within 0.05 at
+             every budget, the generous budget bit for bit the untruncated
+             solve; (d) 2 lanes, 3 ticks with HealthMonitor(kkt_every=1):
+             every decision's KKT stationarity residual finite, each
+             certificate timed. The kernels
+             phase also times the warm tick's shapes (B = 8, n = 1880:
+             T = 1 value+gradient, T = 12 value).
 7. attention — the flash_attention and decode_attention kernels on the card
              against their plain PyTorch versions (on the float32 values of
              the same inputs; rtol = atol = 2e-4 in float32, 2e-2 in
@@ -230,7 +252,14 @@ REF_S4_BNB = {"none": 0.5736375451087952, "c+": 0.6254016757011414,
 SEQUENTIAL_RUNS = (("sequential", "sequential", "kernel"),
                    ("vmap", "batched", "vmap"),
                    ("kernel", "batched", "kernel"))
-SEQUENTIAL_TENANTS = 4        # the first four: one per trace kind
+SEQUENTIAL_TENANTS = 2        # the first two (diurnal, flash_crowd)
+# the serving demo of ``python -m repro_torch.serve`` (lanes, ticks, base
+# demand) and the degradation sweep's budgets (benchmarks/serve_bench.py)
+SERVE_LANES, SERVE_TICKS = 8, 24
+HEALTH_LANES = 2              # the health-monitored session's lanes
+SERVE_BASE = [8.0, 16.0, 4.0, 100.0]
+DEGRADATION_BUDGETS = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 64.0)
+SERVE_SLACK_MS = 1.0          # host time a warm solve may add past its chunk
 REPLACES = {
     "alloc_objective_fleet": "src/repro/kernels/alloc_objective/kernel.py:136",
     "alloc_objective_fleet_value":
@@ -1415,6 +1444,289 @@ def sequential_checks(catalog, tenants, ops, replay_mod) -> dict:
     return rec
 
 
+def serve_alloc_checks(dev, ops, seed: int) -> dict:
+    """The online allocation service on the card (``repro_torch.serve``):
+    the demo session of ``python -m repro_torch.serve`` (full catalog,
+    SERVE_LANES lanes, SERVE_TICKS ticks, flash-crowd demand, one
+    departure at mid-session) through ``run_demo``.
+
+    (a) with the kernel and with ``hot_loop="ref"``, no deadline; launch
+        counts zeroed just before the kernel session and read just after,
+        by entry and shape. Raises unless the two make the same decisions
+        with equal feasibility and staleness, each decision's objective
+        within TENANT_RTOL of the plain one and their sum within
+        FLEET_RTOL, and the kernel session launched both fleet entries and
+        the single-problem one while the plain one launched nothing.
+    (b) with the kernel under a deadline of half (a)'s median warm-tick
+        time. Raises unless every decision is feasible, one at least
+        reports ``deadline_hit``, and no warm solve outlasts its budget by
+        more than its longest chunk plus its fixed work (the chunked
+        state's init, and the setup and rounding around the chunk loop,
+        each timed with a synchronize) plus SERVE_SLACK_MS of host time.
+    (c) the degradation sweep of ``benchmarks/serve_bench.py`` at the full
+        catalog: one warm solve (demand x3 from the kernel multistart's
+        answer at the base demand, delta_max 64) under budgets of
+        DEGRADATION_BUDGETS ms, chunks of 8 iterations and a fake clock
+        at 0.25 ms a reading, with the kernel and plain. Raises unless
+        both pass the bench's five checks, the two engines' rounded
+        objectives agree within TENANT_RTOL at every budget, and the
+        generous budget gives the untruncated solve bit for bit.
+    (d) a short session (HEALTH_LANES lanes, 3 ticks) with
+        ``HealthMonitor(kkt_every=1)``: every decision certified by
+        ``kkt_report`` on the card, the certificates timed apart. Raises
+        unless every stationarity residual is finite."""
+    import numpy as np
+    import torch
+    import repro_torch.core.incremental as incremental_mod
+    import repro_torch.obs.health as health_mod
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.core import (is_feasible, make_cloud_catalog,
+                                  multistart_solve, objective_value,
+                                  problem_from_demand, round_and_polish,
+                                  solve_incremental_info)
+    from repro_torch.core.controller import (
+        InfrastructureOptimizationController as Ctl)
+    from repro_torch.core.pgd import AnytimeConfig
+    from repro_torch.fleet.traces import flash_crowd_trace
+    from repro_torch.obs import HealthMonitor
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.__main__ import run_demo
+    catalog = make_cloud_catalog()
+    times = collections.defaultdict(list)
+    anytime_log = []
+    wrapped = {"cold": Ctl.cold_start_counts,
+               "kkt": health_mod.HealthMonitor._certify,
+               "warm": engine_mod.ServeEngine._warm_solve,
+               "solve": engine_mod.solve_fleet_step,
+               "run_anytime": incremental_mod.run_anytime}
+
+    def synced(kind):
+        fn = wrapped[kind]
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - s0) * 1e3)
+            return out
+        return wrapper
+
+    def timed_anytime(init_fn, chunk_fn, cfg, anytime):
+        chunk_ms, init_ms = [], []
+
+        def init():
+            s0 = time.perf_counter()
+            out = init_fn()
+            torch.cuda.synchronize()
+            init_ms.append((time.perf_counter() - s0) * 1e3)
+            return out
+
+        def chunk(state, it_end):
+            s0 = time.perf_counter()
+            out = chunk_fn(state, it_end)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - s0) * 1e3)
+            return out
+
+        s0 = time.perf_counter()
+        state, report = wrapped["run_anytime"](init, chunk, cfg, anytime)
+        anytime_log.append({
+            "budget_ms": anytime.deadline_ms, "chunks": report.chunks,
+            "deadline_hit": report.deadline_hit,
+            "anytime_ms": (time.perf_counter() - s0) * 1e3,
+            "init_ms": init_ms[0], "max_chunk_ms": max(chunk_ms, default=0.0),
+            "solve_index": len(times["solve"])})
+        return state, report
+
+    def session(hot_loop, deadline_ms):
+        times.clear()
+        anytime_log.clear()
+        ops.reset_launches()
+        with ShapeCounts(ops) as shapes:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            eng = run_demo(lanes=SERVE_LANES, ticks=SERVE_TICKS,
+                           deadline_ms=deadline_ms, seed=seed,
+                           hot_loop=hot_loop, device=dev, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+        s = eng.summary()
+        warm = list(times["warm"])
+        return eng, {
+            "hot_loop": hot_loop, "deadline_ms": deadline_ms, "wall_s": wall,
+            "decisions": s.decisions, "ticks": s.ticks,
+            "p50_latency_ms": s.p50_latency_ms,
+            "p99_latency_ms": s.p99_latency_ms, "miss_rate": s.miss_rate,
+            "truncated_rate": s.truncated_rate,
+            "mean_staleness": s.mean_staleness,
+            "max_staleness": s.max_staleness,
+            "cold_joins": len(times["cold"]),
+            "cold_join_s": sum(times["cold"]) / 1e3,
+            "warm_ticks": len(warm), "warm_tick_s": sum(warm) / 1e3,
+            "warm_tick_ms_median": float(np.median(warm)) if warm else None,
+            "warm_tick_ms_max": max(warm, default=None),
+            "launches": dict(ops.LAUNCHES),
+            "launches_by_shape": shapes.by_shape()}
+
+    Ctl.cold_start_counts = synced("cold")
+    engine_mod.ServeEngine._warm_solve = synced("warm")
+    engine_mod.solve_fleet_step = synced("solve")
+    incremental_mod.run_anytime = timed_anytime
+    try:
+        # (a) kernel against plain, no deadline
+        k_eng, k_rec = session("kernel", None)
+        solves_k = list(times["solve"])
+        p_eng, p_rec = session("ref", None)
+        # (b) the kernel under a real deadline
+        deadline = 0.5 * k_rec["warm_tick_ms_median"]
+        d_eng, d_rec = session("kernel", deadline)
+        solve_ms = list(times["solve"])
+        budgets = list(anytime_log)
+    finally:
+        Ctl.cold_start_counts = wrapped["cold"]
+        engine_mod.ServeEngine._warm_solve = wrapped["warm"]
+        engine_mod.solve_fleet_step = wrapped["solve"]
+        incremental_mod.run_anytime = wrapped["run_anytime"]
+    k_l = k_rec["launches"]
+    if not (k_l["alloc_objective"] and k_l["alloc_objective_fleet"]
+            and k_l["alloc_objective_fleet_value"]):
+        raise AssertionError(f"serve (a): the kernel session launched {k_l}")
+    if any(p_rec["launches"].values()):
+        raise AssertionError(f"serve (a): the plain session launched "
+                             f"{p_rec['launches']}")
+    key = lambda r: (r.tick, r.tenant)
+    if [key(r) for r in k_eng.records] != [key(r) for r in p_eng.records]:
+        raise AssertionError("serve (a): the two sessions decided other "
+                             "(tick, tenant) pairs")
+    obj_k = np.asarray([r.objective for r in k_eng.records])
+    obj_p = np.asarray([r.objective for r in p_eng.records])
+    rel = np.abs(obj_k - obj_p) / np.abs(obj_p)
+    agg = abs(obj_k.sum() - obj_p.sum()) / obj_p.sum()
+    flags = lambda e: [(r.feasible, r.staleness, r.cold) for r in e.records]
+    gate_a = {"max_decision_rel_diff": float(rel.max()),
+              "aggregate_rel_diff": float(agg),
+              "feasibility_staleness_equal": flags(k_eng) == flags(p_eng),
+              "all_feasible": bool(all(r.feasible for r in k_eng.records)),
+              "warm_solve_ms": solves_k}
+    if not (rel.max() <= TENANT_RTOL and agg <= FLEET_RTOL
+            and gate_a["feasibility_staleness_equal"]):
+        raise AssertionError(f"serve (a): kernel against plain {gate_a}")
+    over = []
+    for log in budgets:
+        total = solve_ms[log["solve_index"]]
+        fixed = log["init_ms"] + (total - log["anytime_ms"])
+        over.append({**log, "solve_ms": total,
+                     "overrun_ms": total - log["budget_ms"],
+                     "allowed_ms": log["max_chunk_ms"] + fixed
+                     + SERVE_SLACK_MS})
+    gate_b = {"deadline_ms": deadline,
+              "all_feasible": bool(all(r.feasible for r in d_eng.records)),
+              "deadline_hits": int(sum(r.deadline_hit
+                                       for r in d_eng.records)),
+              "warm_solves": over,
+              "overruns": [o for o in over
+                           if o["overrun_ms"] > o["allowed_ms"]]}
+    if not (gate_b["all_feasible"] and gate_b["deadline_hits"]
+            and len(over) == d_rec["warm_ticks"] and not gate_b["overruns"]):
+        raise AssertionError(f"serve (b): the deadline session {gate_b}")
+    # (c) the degradation sweep, kernel and plain
+    s0 = time.perf_counter()
+    base = np.asarray(SERVE_BASE, np.float64)
+    x_cur = multistart_solve(problem_from_demand(catalog, base, device=dev),
+                             n_starts=4).x_int
+    prob = problem_from_demand(catalog, base * 3.0, device=dev)
+    sweep = {}
+    for who, use_kernel in (("kernel", True), ("plain", False)):
+        rows = []
+        ops.reset_launches()
+        for budget in DEGRADATION_BUDGETS:
+            t = [0.0]
+
+            def clock():
+                t[0] += 0.25e-3
+                return t[0]
+
+            x_best, iters, report = solve_incremental_info(
+                prob, x_cur, 64.0, use_kernel=use_kernel,
+                anytime=AnytimeConfig(deadline_ms=budget, chunk_iters=8,
+                                      clock=clock))
+            x_int = round_and_polish(prob, x_best, use_kernel=use_kernel)
+            rows.append({
+                "budget_ms": budget, "iters": int(iters),
+                "deadline_hit": report.deadline_hit,
+                "chunks": report.chunks,
+                "objective_relaxed": float(objective_value(
+                    prob, x_best, use_kernel)),
+                "objective_int": float(objective_value(prob, x_int,
+                                                       use_kernel)),
+                "feasible": bool(is_feasible(prob, x_int, 1e-3))})
+        x_full, it_full = solve_incremental_info(prob, x_cur, 64.0,
+                                                 use_kernel=use_kernel)
+        merits = [r["objective_relaxed"] for r in rows]
+        checks = {
+            "monotone_objective": all(b <= a + 1e-6 for a, b in
+                                      zip(merits, merits[1:])),
+            "monotone_iters": all(r2["iters"] >= r1["iters"]
+                                  for r1, r2 in zip(rows, rows[1:])),
+            "all_feasible": all(r["feasible"] for r in rows),
+            "tight_budget_truncates": rows[0]["deadline_hit"],
+            "generous_budget_completes": not rows[-1]["deadline_hit"],
+            "generous_equals_untruncated": bool(
+                torch.equal(x_best, x_full) and int(iters) == int(it_full))}
+        sweep[who] = {"rows": rows, "checks": checks,
+                      "launches": dict(ops.LAUNCHES)}
+        if not all(checks.values()):
+            raise AssertionError(f"serve (c) {who}: {checks}")
+    rel_c = [abs(a["objective_int"] - b["objective_int"])
+             / abs(b["objective_int"]) for a, b in
+             zip(sweep["kernel"]["rows"], sweep["plain"]["rows"])]
+    sweep["kernel_vs_plain_rel_diff"] = rel_c
+    if max(rel_c) > TENANT_RTOL:
+        raise AssertionError(f"serve (c): kernel against plain {rel_c}")
+    if not sweep["kernel"]["launches"]["alloc_objective_fleet"] or any(
+            sweep["plain"]["launches"].values()):
+        raise AssertionError("serve (c): launches "
+                             f"{sweep['kernel']['launches']}, plain "
+                             f"{sweep['plain']['launches']}")
+    sweep["seconds"] = time.perf_counter() - s0
+    # (d) the health monitor certifying every decision on the card
+    s0 = time.perf_counter()
+    times.clear()
+    rng = np.random.default_rng(seed)
+    mon = HealthMonitor(kkt_every=1)
+    eng = ServeEngine(catalog, HEALTH_LANES, health=mon, device=dev)
+    traces = [flash_crowd_trace(base * rng.uniform(0.5, 1.5, size=4), 3,
+                                seed=seed + k) for k in range(HEALTH_LANES)]
+    health_mod.HealthMonitor._certify = synced("kkt")
+    try:
+        for k, tr in enumerate(traces):
+            eng.register(f"t{k}", demand=tr[0])
+        eng.tick()
+        for t in (1, 2):
+            for k, tr in enumerate(traces):
+                eng.submit(f"t{k}", tr[t])
+            eng.tick()
+    finally:
+        health_mod.HealthMonitor._certify = wrapped["kkt"]
+    rep = mon.report()
+    health = {"lanes": HEALTH_LANES, "decisions": len(eng.records),
+              "kkt_ticks_certified": rep.kkt_ticks_certified,
+              "kkt_ms": times["kkt"],
+              "worst_kkt_stationarity": rep.worst_kkt_stationarity,
+              "worst_kkt": rep.worst_kkt,
+              "nonfinite_events": rep.nonfinite_events,
+              "seconds": time.perf_counter() - s0}
+    if not (rep.nonfinite_events == 0 and rep.kkt_ticks_certified
+            == len(eng.records) and rep.worst_kkt_stationarity is not None
+            and np.isfinite(rep.worst_kkt_stationarity)):
+        raise AssertionError(f"serve (d): {health}")
+    return {"n": catalog.n, "lanes": SERVE_LANES, "ticks": SERVE_TICKS,
+            "kernel": k_rec, "plain": p_rec, "kernel_vs_plain": gate_a,
+            "deadline": d_rec, "deadline_gate": gate_b,
+            "degradation": sweep, "health": health}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1608,6 +1920,13 @@ def main() -> int:
                     ("alloc_objective_fleet_value", L)):
         slice_measured[f"{name}@B=1,T={T}"] = fleet_case(name, T, alone,
                                                          timed=True)
+    # the serving engine's warm tick: SERVE_LANES lanes, unpadded n = 1880
+    lanes = stack_problems(probs[:SERVE_LANES], device=dev).problem
+    serve_measured = {
+        f"{name}@B={SERVE_LANES},T={T}": fleet_case(name, T, lanes,
+                                                    timed=True)
+        for name, T in (("alloc_objective_fleet", 1),
+                        ("alloc_objective_fleet_value", L))}
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "rtol": RTOL, "atol": ATOL, "launch_floor_ms": launch_floor_ms,
           "checks": checks})
@@ -1786,6 +2105,12 @@ def main() -> int:
                             replay_mod)
     emit({"phase": "sequential", "seconds": time.perf_counter() - t0, **seq})
 
+    # ---- serve_alloc: the online allocation service ----------------------
+    t0 = time.perf_counter()
+    serve_alloc = serve_alloc_checks(dev, ops, args.seed)
+    emit({"phase": "serve_alloc", "seconds": time.perf_counter() - t0,
+          **serve_alloc})
+
     # ---- attention kernels ---------------------------------------------
     t0 = time.perf_counter()
     attn_checks, attn_measured = attention_checks(args.seed, dev)
@@ -1854,6 +2179,24 @@ def main() -> int:
                       "alloc_objective.cu",
             "replaces": REPLACES[name],
             "launches": launches,
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None})
+    # the serving engine's warm-tick shapes, with their launches in the
+    # serve_alloc phase's kernel session without a deadline
+    serve_shapes = serve_alloc["kernel"]["launches_by_shape"]
+    for key, rec in serve_measured.items():
+        name = key.split("@")[0]
+        if not serve_shapes.get(key):
+            raise AssertionError(f"{key} was never launched on its path")
+        kernels.append({
+            "name": f"{name} ({key.split('@')[1]}, serve)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/alloc_objective/csrc/"
+                      "alloc_objective.cu",
+            "replaces": REPLACES[name],
+            "launches": serve_shapes[key],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

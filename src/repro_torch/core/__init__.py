@@ -2,8 +2,10 @@
 container, eq. (1) objective and its kernel routing, the BB/Armijo PGD
 engine, the barrier relaxation, multistart solves, greedy rounding,
 branch-and-bound, the one-shot ``optimize`` pipeline over the paper's
-scenarios, the Cluster-Autoscaler baseline, incremental adoption and the
-controller's control loop, whose state the fleet replay drives."""
+scenarios, the Cluster-Autoscaler baseline, incremental adoption (traced,
+or under an anytime deadline), the KKT certificate, and the controller's
+control loop, whose state the fleet replay and the serving engine
+drive."""
 from .catalog import Catalog, InstanceType, make_cloud_catalog
 from .controller import ControllerStep, InfrastructureOptimizationController
 from .api import (OptimizeResult, optimize, problem_from_demand,
@@ -19,7 +21,9 @@ from .multistart import make_starts, multistart_solve
 from .objective import (constraint_residuals, grad_objective, is_feasible,
                         objective_terms, project, value_and_grad)
 from .objective import objective as objective_value
-from .pgd import PGDConfig, pgd_minimize
+from .pgd import (AnytimeConfig, AnytimeReport, PGDConfig, PGDTrace,
+                  pgd_minimize, pgd_minimize_traced)
+from .kkt import KKTReport, kkt_report
 from .problem import AllocationProblem, PenaltyParams
 from .rounding import greedy_round, round_and_polish, scale_down
 from .scenarios import Scenario, build_scenarios, scaled_scenario
@@ -38,6 +42,8 @@ __all__ = [
     "evaluate", "make_starts", "multistart_solve", "constraint_residuals",
     "grad_objective", "is_feasible", "objective_terms", "project",
     "value_and_grad", "objective_value", "PGDConfig", "pgd_minimize",
+    "AnytimeConfig", "AnytimeReport", "PGDTrace", "pgd_minimize_traced",
+    "KKTReport", "kkt_report",
     "AllocationProblem", "PenaltyParams", "greedy_round", "round_and_polish",
     "scale_down", "Scenario", "build_scenarios", "scaled_scenario",
     "SolveResult", "SolverConfig", "phase1_point", "solve_relaxation",

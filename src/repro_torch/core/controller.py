@@ -5,7 +5,10 @@ multistart solve; every later tick replans under the incremental-adoption
 bound ||x - x_cur||_1 <= delta_max, warm-started from the current counts;
 ``replan_on_failure`` relaxes the bound by the failed nodes. The batched
 fleet replay drives the same state through :meth:`make_problem` and
-:meth:`apply_counts`. Anytime budgets and solver traces are not ported.
+:meth:`apply_counts`. A warm tick can also capture the solver's
+convergence rows (``capture_solver_trace``) or run under an anytime
+deadline (``anytime``), which deploys the best-so-far feasible iterate when
+the budget expires.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from .catalog import Catalog
 from .incremental import solve_incremental_info
 from .metrics import AllocationMetrics, evaluate
 from .multistart import multistart_solve
+from .pgd import AnytimeConfig
 from .problem import AllocationProblem, PenaltyParams
 from .rounding import round_and_polish
 
@@ -29,7 +33,8 @@ from .rounding import round_and_polish
 class ControllerStep:
     """One recorded tick: the demand seen, the allocation deployed, its
     snapshot metrics, the L1 churn paid, and whether it was a full replan
-    (see ``repro.core.controller.ControllerStep``)."""
+    (see ``repro.core.controller.ControllerStep``). ``deadline_hit`` marks
+    a tick whose solve an anytime deadline truncated."""
 
     demand: np.ndarray
     counts: np.ndarray
@@ -38,6 +43,7 @@ class ControllerStep:
     replanned: bool
     churn_violation: float = 0.0  # max(0, churn - delta_max) on warm ticks
     solver_iters: int = 0         # inner PGD iterations spent on this tick
+    deadline_hit: bool = False    # anytime budget truncated this tick's solve
 
 
 @dataclass
@@ -47,7 +53,10 @@ class InfrastructureOptimizationController:
     ``delta_max``. ``device`` is where :meth:`make_problem` builds each
     tick's problem and the solves run (None means "cuda"); ``use_kernel``
     (default) evaluates eq. (1) with the CUDA kernel there, False with the
-    plain PyTorch version."""
+    plain PyTorch version. ``capture_solver_trace`` appends every warm
+    solve's :class:`~repro_torch.core.pgd.PGDTrace` (numpy rows) to
+    ``solver_traces``; an enabled ``anytime`` config truncates every warm
+    solve at its deadline. The two exclude each other."""
 
     catalog: Catalog
     delta_max: float = 8.0                       # max L1 churn per tick
@@ -62,10 +71,16 @@ class InfrastructureOptimizationController:
     spot_availability: Optional[np.ndarray] = None   # (T', S) in {0, 1}
     device: DeviceLike = None
     use_kernel: bool = True
+    capture_solver_trace: bool = False
+    solver_traces: List = field(default_factory=list)
+    anytime: Optional[AnytimeConfig] = None
 
     # not a dataclass field: the last warm solve's PGD iteration count,
     # recorded by step() (0 until a warm solve has run)
     _last_solver_iters = 0
+    # not a dataclass field: whether the last warm solve's anytime budget
+    # expired before convergence
+    _last_deadline_hit = False
     # not a dataclass field: the last solve's RELAXED solution (cold and
     # warm); the integer counts are a rounding of it
     last_x_rel: Optional[np.ndarray] = None
@@ -100,13 +115,24 @@ class InfrastructureOptimizationController:
         """Warm-tick allocation: incremental solve from the current counts
         under the L1 churn bound, then greedy rounding. ``x_init``
         optionally overrides the warm start; the solve's iteration count is
-        kept on ``_last_solver_iters``."""
+        kept on ``_last_solver_iters`` and its truncation on
+        ``_last_deadline_hit``."""
         f32 = dict(dtype=torch.float32, device=prob.device)
         x_init = None if x_init is None else torch.as_tensor(x_init, **f32)
-        x_rel, iters = solve_incremental_info(
+        timed = self.anytime is not None and self.anytime.enabled
+        if timed and self.capture_solver_trace:
+            raise ValueError("anytime deadlines and capture_solver_trace "
+                             "are mutually exclusive; drop one")
+        x_rel, iters, *extra = solve_incremental_info(
             prob, torch.as_tensor(self.x_current, **f32),
             torch.as_tensor(self.delta_max, **f32), x_init=x_init,
-            use_kernel=self.use_kernel)
+            use_kernel=self.use_kernel,
+            capture_trace=self.capture_solver_trace,
+            anytime=self.anytime if timed else None)
+        self._last_deadline_hit = bool(timed and extra[0].deadline_hit)
+        if self.capture_solver_trace:
+            self.solver_traces.append(
+                type(extra[0])(*(f.cpu().numpy() for f in extra[0])))
         self._last_solver_iters = int(iters)
         self.last_x_rel = x_rel.cpu().numpy().astype(np.float64)
         # rounding may exceed the churn bound slightly when demand jumps;
@@ -115,7 +141,8 @@ class InfrastructureOptimizationController:
                                 ).cpu().numpy().astype(np.float64)
 
     def apply_counts(self, demand: np.ndarray, counts: np.ndarray,
-                     replanned: bool, solver_iters: int = 0) -> ControllerStep:
+                     replanned: bool, solver_iters: int = 0,
+                     deadline_hit: bool = False) -> ControllerStep:
         """Record an allocation computed for this tick (by :meth:`step`, or
         by the batched fleet engine): churn and metrics, advance
         ``x_current``, append history."""
@@ -131,7 +158,8 @@ class InfrastructureOptimizationController:
                               metrics=evaluate(self.catalog, x, demand),
                               churn=churn, replanned=replanned,
                               churn_violation=violation,
-                              solver_iters=int(solver_iters))
+                              solver_iters=int(solver_iters),
+                              deadline_hit=bool(deadline_hit))
         self.history.append(step)
         return step
 
@@ -144,10 +172,12 @@ class InfrastructureOptimizationController:
         if self.x_current is None:
             x, replanned = self.cold_start_counts(prob), True
             self._last_solver_iters = 0
+            self._last_deadline_hit = False
         else:
             x, replanned = self.incremental_counts(prob, x_init=x_init), False
         return self.apply_counts(demand, x, replanned,
-                                 solver_iters=self._last_solver_iters)
+                                 solver_iters=self._last_solver_iters,
+                                 deadline_hit=self._last_deadline_hit)
 
     def replan_on_failure(self, failed_counts: np.ndarray,
                           demand: np.ndarray) -> ControllerStep:

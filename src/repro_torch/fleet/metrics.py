@@ -1,7 +1,6 @@
 """Fleet/time metric aggregation for trace replays — port of
-``repro.fleet.metrics`` (numpy only). Health monitoring and the oracle-MPC
-comparison are not ported yet, so ``FleetReplayMetrics.health`` is always
-None and there is no ``oracle`` field.
+``repro.fleet.metrics`` (numpy only). The oracle-MPC comparison is not
+ported yet, so there is no ``oracle`` field.
 
 Extends the paper's snapshot metrics (repro_torch.core.metrics) over TIME
 (cost integral, SLO-violation ticks, churn) and over the FLEET (tenant
@@ -24,6 +23,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..core.metrics import AllocationMetrics
+from ..obs.health import HealthReport
 
 
 @dataclass
@@ -89,15 +89,17 @@ class FleetReplayMetrics:
     (``replay_fleet(run_ca_baseline=True)``, one entry per tenant).
 
     ``replay_mode`` and ``controller`` record which engine and control loop
-    produced the histories (provenance only). The reference's oracle-MPC
-    ``oracle`` comparison is not ported yet, and neither is health
-    monitoring: ``health`` is always None."""
+    produced the histories (provenance only). ``health`` is the rolled-up
+    ``repro_torch.obs.HealthReport`` of a replay run with a
+    ``HealthMonitor`` (``replay_fleet(health=...)``), surfaced by
+    ``summary()``; compare=False, since it holds wall-clock observations.
+    The reference's oracle-MPC ``oracle`` comparison is not ported yet."""
 
     tenants: List[TenantReplayMetrics]
     baseline: Optional[List[TenantReplayMetrics]] = None
     replay_mode: str = "batched"
     controller: str = "myopic"
-    health: None = field(default=None, compare=False)
+    health: Optional[HealthReport] = field(default=None, compare=False)
 
     @property
     def total_cost_integral(self) -> float:
@@ -184,4 +186,6 @@ class FleetReplayMetrics:
                          f"${self.baseline_cost_integral:,.2f}")
             lines.append(f"  savings vs CA      : "
                          f"{self.cost_savings_vs_baseline_pct:+.1f}%")
+        if self.health is not None:
+            lines.extend(self.health.summary_lines())
         return "\n".join(lines)

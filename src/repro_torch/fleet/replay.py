@@ -29,12 +29,19 @@ through ``simulate_cluster_autoscaler_batch``, one call per tick per
 distinct catalog; ``ca_engine="sequential"`` loops the per-tenant oracle,
 and the two agree tick for tick.
 
-Not ported yet (each raises ``NotImplementedError``): the MPC controller,
-health monitoring, anytime deadlines, solver-trace capture and telemetry
-spans.
+Both engines also take the reference's observers and budgets: a
+``repro_torch.obs.HealthMonitor`` (``health=``) that observes every
+committed (tenant, tick) and times every tick with its clock, per-warm-tick
+solver traces (``capture_solver_trace=True``, returned as
+``FleetReplayResult.solver_traces``), an anytime deadline on every warm
+solve (``anytime=AnytimeConfig(...)``), and ``replay/*`` telemetry spans
+and gauges (``repro_torch.obs.telemetry``). None of them changes an
+allocation. Not ported yet: the MPC controller (``controller="mpc"``
+raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,8 +56,12 @@ from ..core.catalog import M as RESOURCE_DIM
 from ..core.controller import (ControllerStep,
                                InfrastructureOptimizationController)
 from ..core.metrics import AllocationMetrics, evaluate
-from ..core.problem import PenaltyParams
+from ..core.pgd import AnytimeConfig
+from ..core.problem import PenaltyParams, problem_to
 from ..device import DeviceLike, resolve_device
+from ..obs import metrics as obs_metrics
+from ..obs.health import HealthMonitor
+from ..obs.telemetry import gauge, span
 from .batching import bucket_dims, embed_solutions, stack_problems
 from .metrics import FleetReplayMetrics, TenantReplayMetrics, tenant_metrics
 from .solver import (_use_kernel, make_fleet_starts, solve_fleet,
@@ -121,10 +132,14 @@ class TenantReplay:
 
 @dataclass
 class FleetReplayResult:
-    """Per-tenant histories + fleet rollup."""
+    """Per-tenant histories + fleet rollup. ``solver_traces`` is None
+    unless the replay ran with ``capture_solver_trace=True``: then one list
+    per tenant of its per-WARM-tick ``PGDTrace`` rows (numpy leaves; cold
+    ticks run the multistart solver, which is not traced)."""
 
     tenants: List[TenantReplay]
     metrics: FleetReplayMetrics
+    solver_traces: Optional[List[List]] = None
 
 
 def default_ca_pools(catalog: Catalog, demand: np.ndarray,
@@ -263,6 +278,97 @@ def replay_tenant(catalog: Catalog, spec: TenantSpec, *,
     return _assemble_replay(spec, steps, ca)
 
 
+def _spot_unavailable(spec: TenantSpec, t: int) -> int:
+    """Number of this tenant's spot twins interrupted at tick ``t`` (the
+    same clamped-row convention the controller's spot overlay uses)."""
+    if spec.spot_idx is None or spec.spot_availability is None:
+        return 0
+    avail = np.asarray(spec.spot_availability)
+    return int((avail[min(t, len(avail) - 1)] <= 0.0).sum())
+
+
+class _TickObserver:
+    """Per-tick observation plumbing shared by the replay loops: decides
+    once whether anything is watching (a :class:`HealthMonitor` and/or an
+    installed ``repro_torch.obs.metrics`` registry), times ticks with the
+    monitor's injectable clock, and fans each tick's duration and iteration
+    count out to both. When nothing watches, every method is a no-op and no
+    clock is read."""
+
+    __slots__ = ("health", "reg", "clock", "active", "_t0")
+
+    def __init__(self, health: Optional[HealthMonitor]):
+        self.health = health
+        self.reg = obs_metrics.current_metrics()
+        self.clock = health.clock if health is not None else time.perf_counter
+        self.active = health is not None or self.reg is not None
+        self._t0 = 0.0
+
+    def tick_start(self) -> None:
+        """Stamp the tick's start time (no-op when nothing watches)."""
+        if self.active:
+            self._t0 = self.clock()
+
+    def tick_end(self, t: int, solver_iters: int, compile_key=None) -> None:
+        """Close the tick: duration to the latency histogram and the
+        deadline budget, iteration count to the effort histogram."""
+        if not self.active:
+            return
+        dur_ms = (self.clock() - self._t0) * 1e3
+        if self.reg is not None:
+            self.reg.histogram("replay/tick_ms").observe(dur_ms)
+            self.reg.histogram("replay/solver_iters").observe(solver_iters)
+        if self.health is not None:
+            self.health.observe_tick(t, dur_ms, compile_key=compile_key)
+
+    def step(self, **kw) -> None:
+        """Forward one committed (tenant, tick) to the health monitor."""
+        if self.health is not None:
+            self.health.observe_step(**kw)
+
+
+def _replay_sequential(ctls, tenants: Sequence[TenantSpec],
+                       capture_solver_trace: bool,
+                       health: Optional[HealthMonitor] = None,
+                       anytime: Optional[AnytimeConfig] = None):
+    """The sequential loop: one ``replay/tick`` span per (tenant, tick),
+    each tenant's controller stepping through its trace. Returns
+    ``(histories, solver_traces)``. With a :class:`HealthMonitor` each
+    (tenant, tick) is timed and observed: the tick's problem is built up
+    front (``make_problem`` is pure and history has not advanced yet, so it
+    is the problem ``step`` solves) and ``last_x_rel`` feeds the KKT
+    gauge."""
+    histories, solver_traces = [], []
+    obs = _TickObserver(health)
+    for ctl, spec in zip(ctls, tenants):
+        ctl.capture_solver_trace = capture_solver_trace
+        ctl.anytime = anytime
+        steps = []
+        for t, demand in enumerate(np.asarray(spec.trace, np.float64)):
+            prob = ctl.make_problem(demand) if health is not None else None
+            n_tr = len(ctl.solver_traces)
+            obs.tick_start()
+            tick_key = ("seq_tick", "myopic", ctl.catalog.n, t > 0,
+                        capture_solver_trace,
+                        anytime is not None and anytime.enabled)
+            with span("replay/tick", cat="replay", tick=t,
+                      engine="sequential", controller="myopic",
+                      tenant=spec.name, compile_key=tick_key):
+                step = ctl.step(demand)
+                steps.append(step)
+            obs.tick_end(t, step.solver_iters, compile_key=tick_key)
+            gauge("replay/solver_iters", step.solver_iters)
+            obs.step(tenant=spec.name, tick=t, step=step,
+                     solver="multistart" if step.replanned else "adaptive",
+                     prob=prob, x_rel=ctl.last_x_rel,
+                     trace=(ctl.solver_traces[-1]
+                            if len(ctl.solver_traces) > n_tr else None),
+                     spot_unavailable=_spot_unavailable(spec, t))
+        histories.append(steps)
+        solver_traces.append(list(ctl.solver_traces))
+    return histories, solver_traces
+
+
 def _replay_batch_groups(ctls: Sequence[InfrastructureOptimizationController],
                          tenants: Sequence[TenantSpec]
                          ) -> Dict[Tuple, List[int]]:
@@ -278,9 +384,19 @@ def _replay_batch_groups(ctls: Sequence[InfrastructureOptimizationController],
 
 def _replay_fleet_batched(catalog: Catalog, tenants: Sequence[TenantSpec], *,
                           warm_start: str, solver_steps: int, hot_loop: str,
-                          device: torch.device):
+                          device: torch.device,
+                          capture_solver_trace: bool = False,
+                          health: Optional[HealthMonitor] = None,
+                          anytime: Optional[AnytimeConfig] = None):
     """Step ALL tenants through their traces with one batched solve per
-    shape bucket per tick; returns the per-tenant step histories."""
+    shape bucket per tick. Returns ``(histories, solver_traces)``.
+
+    Each tick is a ``replay/tick`` span over per-bucket ``replay/stack`` /
+    ``replay/solve`` / ``replay/round`` spans (solve spans fenced, with a
+    compile key per program and bucket). A :class:`HealthMonitor` observes
+    every committed (tenant, tick) — counts, the relaxed solution for the
+    KKT gauge (certified on ``device``), the trace for stall detection —
+    and the FLEET tick's duration against its deadline budget."""
     traces = [np.asarray(spec.trace, np.float64) for spec in tenants]
     T_len = np.asarray([tr.shape[0] for tr in traces])
     ctls = [_make_controller(catalog, spec) for spec in tenants]
@@ -290,50 +406,104 @@ def _replay_fleet_batched(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     # each tenant's problem of the CURRENT tick; frozen tenants keep their
     # last one so stacked shapes stay put (its solve result is discarded)
     probs: List = [None] * len(tenants)
+    solver_traces: List[List] = [[] for _ in tenants]
+    obs = _TickObserver(health)
+    timed = anytime is not None and anytime.enabled
 
     for t in range(int(T_len.max())):
-        for b, ctl in enumerate(ctls):
-            if t < T_len[b]:
-                probs[b] = ctl.make_problem(traces[b][t])
-        for key, idx in sorted(groups.items()):
-            n_pad, m_pad, p_pad, n_starts = key
-            active = T_len[idx] > t                 # (Bk,) liveness
-            if not active.any():
-                continue    # whole bucket expired: nothing left to solve
-            batch = stack_problems([probs[b] for b in idx], n_max=n_pad,
-                                   m_max=m_pad, p_max=p_pad, active=active,
-                                   device=device)
-            if t == 0:
-                # cold start: per-tenant starts at true shape, seed 0
-                starts = make_fleet_starts(batch, n_starts, seed=0)
-                res = solve_fleet(batch, starts=starts, hot_loop=hot_loop,
-                                  device=device)
-                lane_iters = np.zeros(len(idx), np.int64)
-            else:
-                X_cur = embed_solutions(
-                    batch, [ctls[b].x_current for b in idx])
-                X_init = None
-                if warm_start == "relaxed" and x_rel_prev[idx[0]] is not None:
-                    X_init = embed_solutions(batch,
-                                             [x_rel_prev[b] for b in idx])
-                delta = np.asarray([tenants[b].delta_max for b in idx],
-                                   np.float32)
-                res = solve_fleet_step(batch, X_cur, delta, x_init=X_init,
-                                       steps=solver_steps, hot_loop=hot_loop,
-                                       device=device)
-                lane_iters = res.iters.cpu().numpy()
-            X_int = res.x_int.cpu().numpy().astype(np.float64)
-            X_rel = res.x.cpu().numpy() if warm_start == "relaxed" else None
-            for i, b in enumerate(idx):
-                if not active[i]:
-                    continue  # frozen: no churn, no metrics, no state
-                n_true = int(batch.n_true[i])
-                ctls[b].apply_counts(traces[b][t], X_int[i, :n_true],
-                                     replanned=(t == 0),
-                                     solver_iters=int(lane_iters[i]))
-                if X_rel is not None:
-                    x_rel_prev[b] = X_rel[i, :n_true]
-    return [ctl.history for ctl in ctls]
+        obs.tick_start()
+        # ticks 0 (the cold program) and 1 (the first warm one) are each
+        # the first sighting of their key
+        tick_key = ("tick", "batched", "myopic", min(t, 1))
+        with span("replay/tick", cat="replay", tick=t, engine="batched",
+                  controller="myopic", compile_key=tick_key):
+            tick_iters = 0
+            for b, ctl in enumerate(ctls):
+                if t < T_len[b]:
+                    probs[b] = ctl.make_problem(traces[b][t])
+            for key, idx in sorted(groups.items()):
+                n_pad, m_pad, p_pad, n_starts = key
+                active = T_len[idx] > t                 # (Bk,) liveness
+                if not active.any():
+                    continue    # whole bucket expired: nothing left to solve
+                with span("replay/stack", cat="replay", bucket=str(key)):
+                    batch = stack_problems([probs[b] for b in idx],
+                                           n_max=n_pad, m_max=m_pad,
+                                           p_max=p_pad, active=active,
+                                           device=device)
+                if t == 0:
+                    # cold start: per-tenant starts at true shape, seed 0
+                    with span("replay/solve", cat="replay", bucket=str(key),
+                              compile_key=("solve_fleet", key, len(idx)),
+                              cold=True) as sp:
+                        starts = make_fleet_starts(batch, n_starts, seed=0)
+                        res = solve_fleet(batch, starts=starts,
+                                          hot_loop=hot_loop, device=device)
+                        sp.fence(res.x_int)
+                    lane_iters = np.zeros(len(idx), np.int64)
+                    tick_iters += int(res.iters)
+                    bucket_hit = False
+                else:
+                    X_cur = embed_solutions(
+                        batch, [ctls[b].x_current for b in idx])
+                    X_init = None
+                    if (warm_start == "relaxed"
+                            and x_rel_prev[idx[0]] is not None):
+                        X_init = embed_solutions(
+                            batch, [x_rel_prev[b] for b in idx])
+                    delta = np.asarray([tenants[b].delta_max for b in idx],
+                                       np.float32)
+                    with span("replay/solve", cat="replay", bucket=str(key),
+                              compile_key=("solve_fleet_step", key, len(idx),
+                                           capture_solver_trace,
+                                           timed)) as sp:
+                        res = solve_fleet_step(
+                            batch, X_cur, delta, x_init=X_init,
+                            steps=solver_steps, hot_loop=hot_loop,
+                            device=device, capture_trace=capture_solver_trace,
+                            anytime=anytime)
+                        sp.fence(res.x_int)
+                    lane_iters = res.iters.cpu().numpy()
+                    tick_iters += int(lane_iters.sum())
+                    bucket_hit = bool(res.deadline_hit or False)
+                X_int = res.x_int.cpu().numpy().astype(np.float64)
+                # the relaxed solution crosses to the host only where it is
+                # used: the warm start or the health monitor's KKT gauge
+                X_rel = (res.x.cpu().numpy()
+                         if warm_start == "relaxed" or health is not None
+                         else None)
+                batch_tr = getattr(res, "trace", None)
+                lane_tr = (None if batch_tr is None
+                           else [f.cpu().numpy() for f in batch_tr])
+                with span("replay/round", cat="replay", bucket=str(key)):
+                    for i, b in enumerate(idx):
+                        if not active[i]:
+                            continue  # frozen: no churn, no metrics, no state
+                        n_true = int(batch.n_true[i])
+                        step = ctls[b].apply_counts(
+                            traces[b][t], X_int[i, :n_true],
+                            replanned=(t == 0),
+                            solver_iters=int(lane_iters[i]),
+                            deadline_hit=bucket_hit)
+                        tr_b = (None if lane_tr is None else
+                                type(batch_tr)(*(f[i] for f in lane_tr)))
+                        if tr_b is not None:
+                            solver_traces[b].append(tr_b)
+                        if X_rel is not None and warm_start == "relaxed":
+                            x_rel_prev[b] = X_rel[i, :n_true]
+                        if health is not None:
+                            obs.step(tenant=tenants[b].name, tick=t,
+                                     step=step,
+                                     solver=("multistart" if t == 0
+                                             else "adaptive"),
+                                     lane=i,
+                                     prob=problem_to(probs[b], device),
+                                     x_rel=X_rel[i, :n_true], trace=tr_b,
+                                     spot_unavailable=_spot_unavailable(
+                                         tenants[b], t))
+            gauge("replay/solver_iters", tick_iters)
+        obs.tick_end(t, tick_iters, compile_key=tick_key)
+    return [ctl.history for ctl in ctls], solver_traces
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -351,8 +521,8 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
                  solver_steps: int = 600,
                  hot_loop: str = "kernel",
                  capture_solver_trace: bool = False,
-                 health=None,
-                 anytime=None,
+                 health: Optional[HealthMonitor] = None,
+                 anytime: Optional[AnytimeConfig] = None,
                  device: DeviceLike = None) -> FleetReplayResult:
     """Replay every tenant; returns per-tenant histories + fleet aggregates.
 
@@ -377,7 +547,21 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     whole replay can be compared with the kernel's; ``"vmap"`` solves each
     tenant alone with the kernel, the batched engine's equivalence mode.
     In the sequential engine ``"ref"`` gives the controllers
-    ``use_kernel=False`` and the other two ``use_kernel=True``."""
+    ``use_kernel=False`` and the other two ``use_kernel=True``.
+
+    ``capture_solver_trace=True`` records every warm tick's PGD convergence
+    rows (``FleetReplayResult.solver_traces``); the traced solves commit
+    the same allocations. ``health`` (a ``repro_torch.obs.HealthMonitor``)
+    observes the optimizer replay — breach counters, KKT residuals of the
+    committed relaxed solutions, stalls, non-finite guards, tick times
+    against its observe-only budget — and its report lands on
+    ``FleetReplayMetrics.health``; run inside ``collect_metrics()`` to fill
+    the ``replay/tick_ms`` and ``replay/solver_iters`` histograms too.
+    ``anytime`` (an ``AnytimeConfig`` with ``deadline_ms``) truncates every
+    WARM solve at its deadline and deploys the best-so-far feasible
+    iterate, marking the step's ``deadline_hit`` (every lane of a truncated
+    bucket solve); cold ticks are never truncated. Anytime and
+    ``capture_solver_trace`` exclude each other."""
     if len(tenants) == 0:
         raise ValueError("replay_fleet needs at least one TenantSpec; got an "
                          "empty tenant list")
@@ -389,24 +573,25 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
         raise ValueError(f"unknown warm_start {warm_start!r}")
     if ca_engine not in ("vectorized", "sequential"):
         raise ValueError(f"unknown ca_engine {ca_engine!r}")
+    if anytime is not None and anytime.enabled and capture_solver_trace:
+        raise ValueError("anytime deadlines and capture_solver_trace are "
+                         "mutually exclusive; drop one")
     if controller == "mpc":
         raise _not_ported('controller="mpc"')
-    if capture_solver_trace:
-        raise _not_ported("capture_solver_trace=True")
-    if health is not None:
-        raise _not_ported("health monitoring")
-    if anytime is not None:
-        raise _not_ported("anytime deadlines")
     dev = resolve_device(device)
-    if replay_mode == "sequential":   # the reference's loop, no observers
+    if replay_mode == "sequential":
         use_kernel = _use_kernel(hot_loop)
-        histories = [replay_tenant(catalog, spec, run_ca_baseline=False,
-                                   use_kernel=use_kernel, device=dev).steps
-                     for spec in tenants]
+        ctls = [_make_controller(catalog, spec, dev, use_kernel)
+                for spec in tenants]
+        histories, traces_out = _replay_sequential(
+            ctls, tenants, capture_solver_trace, health=health,
+            anytime=anytime)
     else:
-        histories = _replay_fleet_batched(
+        histories, traces_out = _replay_fleet_batched(
             catalog, tenants, warm_start=warm_start,
-            solver_steps=solver_steps, hot_loop=hot_loop, device=dev)
+            solver_steps=solver_steps, hot_loop=hot_loop, device=dev,
+            capture_solver_trace=capture_solver_trace, health=health,
+            anytime=anytime)
     if not run_ca_baseline:
         cas = [None] * len(tenants)
     elif ca_engine == "vectorized":
@@ -414,11 +599,15 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     else:
         cas = [_ca_baseline(catalog, spec, ca_expander, ca_mode)
                for spec in tenants]
-    replays = [_assemble_replay(spec, steps, ca)
-               for spec, steps, ca in zip(tenants, histories, cas)]
-    metrics = FleetReplayMetrics(
-        tenants=[r.metrics for r in replays],
-        baseline=([r.ca_metrics for r in replays]
-                  if run_ca_baseline else None),
-        replay_mode=replay_mode, controller=controller)
-    return FleetReplayResult(tenants=replays, metrics=metrics)
+    with span("replay/metrics", cat="replay"):
+        replays = [_assemble_replay(spec, steps, ca)
+                   for spec, steps, ca in zip(tenants, histories, cas)]
+        metrics = FleetReplayMetrics(
+            tenants=[r.metrics for r in replays],
+            baseline=([r.ca_metrics for r in replays]
+                      if run_ca_baseline else None),
+            replay_mode=replay_mode, controller=controller,
+            health=health.report() if health is not None else None)
+    return FleetReplayResult(
+        tenants=replays, metrics=metrics,
+        solver_traces=traces_out if capture_solver_trace else None)

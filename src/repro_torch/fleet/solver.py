@@ -24,6 +24,13 @@ starts; warm: ``solve_incremental_info`` and ``round_and_polish``) with
 the kernel's single-problem form, then embedded in the padded result. It
 commits exactly what the sequential controller commits — the equivalence
 mode, not a fast one.
+
+``solve_fleet_step`` also runs traced (``capture_trace=True``: per-lane
+PGD convergence rows in ``FleetStepResult.trace``) or under an anytime
+deadline (``anytime=AnytimeConfig(deadline_ms=...)``: the whole fleet's
+lanes in one chunked solve against one clock, each lane deploying its
+best-so-far feasible iterate when the budget expires, and
+``FleetStepResult.deadline_hit`` reporting the truncation).
 """
 from __future__ import annotations
 
@@ -33,10 +40,13 @@ import numpy as np
 import torch
 
 from ..core import objective as obj
-from ..core.incremental import solve_incremental_info
+from ..core.incremental import (incremental_anytime_chunk,
+                                incremental_anytime_init,
+                                solve_incremental_info)
 from ..core.multistart import _solve_batch, make_starts
-from ..core.pgd import SYNC_EVERY, ladder_ratios
-from ..core.problem import AllocationProblem, problem_to
+from ..core.pgd import (SYNC_EVERY, AnytimeConfig, PGDConfig, PGDTrace,
+                        _empty_trace, ladder_ratios, run_anytime)
+from ..core.problem import AllocationProblem, problem_to, unsqueeze_problem
 from ..core.rounding import round_and_polish
 from ..core.solver import SolverConfig, phase1_point
 from ..device import DeviceLike, resolve_device
@@ -63,13 +73,18 @@ class FleetSolveResult(NamedTuple):
 
 
 class FleetStepResult(NamedTuple):
-    """One batched incremental tick over the whole fleet."""
+    """One batched incremental tick over the whole fleet. ``trace`` is the
+    per-lane :class:`~repro_torch.core.pgd.PGDTrace` of a
+    ``capture_trace=True`` tick (else None); ``deadline_hit`` whether an
+    anytime budget truncated the tick (None without one)."""
 
     x: torch.Tensor         # (B, n) relaxed incremental solution
     x_int: torch.Tensor     # (B, n) rounded allocation actually deployed
     fun_int: torch.Tensor   # (B,) objective at x_int
     feasible: torch.Tensor  # (B,) integer-solution feasibility
     iters: torch.Tensor     # (B,) adaptive-PGD iterations per lane
+    trace: Optional[PGDTrace] = None     # (B, steps) per-lane rows
+    deadline_hit: Optional[bool] = None  # anytime tick truncated (None: n/a)
 
 
 def _use_kernel(hot_loop: str) -> bool:
@@ -289,6 +304,8 @@ def solve_fleet_step(
     active: Optional[np.ndarray] = None,
     hot_loop: str = "kernel",
     device: DeviceLike = None,
+    capture_trace: bool = False,
+    anytime: Optional[AnytimeConfig] = None,
 ) -> FleetStepResult:
     """One incremental-adoption tick for EVERY tenant at once: per lane, PGD
     on the objective inside the L1 churn ball ``||x - x_current||_1 <=
@@ -300,8 +317,20 @@ def solve_fleet_step(
     batch's own): frozen lanes come back with ``x == x_int == x_current``.
     ``hot_loop`` chooses the kernel or the plain eq. (1), as in
     :func:`solve_fleet`; ``"vmap"`` solves each live tenant alone at its
-    true shape, as the sequential controller does."""
+    true shape, as the sequential controller does.
+
+    ``capture_trace=True`` also returns each lane's convergence rows in
+    ``FleetStepResult.trace`` (the solves are the untraced ones). An
+    enabled ``anytime`` config runs every lane in one chunked solve against
+    the config's clock and returns each lane's best-so-far feasible
+    iterate when the fleet-wide budget expires, with
+    ``FleetStepResult.deadline_hit``; a disabled or absent config takes
+    the untruncated path. The two exclude each other."""
     use_kernel = _use_kernel(hot_loop)
+    timed = anytime is not None and anytime.enabled
+    if timed and capture_trace:
+        raise ValueError("anytime deadlines and capture_trace are mutually "
+                         "exclusive; drop one")
     dev = resolve_device(device)
     batch = _as_batch(fleet, dev)
     if active is None:
@@ -314,13 +343,20 @@ def solve_fleet_step(
     x_init = x_current if x_init is None else torch.as_tensor(x_init, **f32)
     active = np.asarray(active, bool)
     live = torch.as_tensor(active, device=dev)
+    trace = hit = None
     if hot_loop == "vmap":
-        x_rel, x_int, iters = _step_lanes(batch, x_current, delta_max,
-                                          x_init, steps, active)
+        x_rel, x_int, iters, trace, hit = _step_lanes(
+            batch, x_current, delta_max, x_init, steps, active,
+            capture_trace, anytime if timed else None)
     else:
-        x_rel, iters = solve_incremental_info(prob, x_current, delta_max,
-                                              x_init=x_init, steps=steps,
-                                              use_kernel=use_kernel)
+        x_rel, iters, *extra = solve_incremental_info(
+            prob, x_current, delta_max, x_init=x_init, steps=steps,
+            use_kernel=use_kernel, capture_trace=capture_trace,
+            anytime=anytime)
+        if timed:
+            hit = extra[0].deadline_hit
+        elif capture_trace:
+            trace = extra[0]
         x_int = round_and_polish(prob, x_rel, use_kernel=use_kernel)
     # frozen lanes keep their warm start as the answer
     x_rel = torch.where(live[:, None], x_rel, x_current)
@@ -329,22 +365,69 @@ def solve_fleet_step(
         x=x_rel, x_int=x_int,
         fun_int=obj.objective(prob, x_int, use_kernel=use_kernel),
         feasible=obj.is_feasible(prob, x_int, 1e-3),
-        iters=torch.where(live, iters, torch.zeros_like(iters)))
+        iters=torch.where(live, iters, torch.zeros_like(iters)),
+        trace=trace, deadline_hit=hit)
+
+
+class _LaneStates(NamedTuple):
+    """The anytime states of ``hot_loop="vmap"``'s live lanes, each solved
+    at its true shape; ``done`` joins their masks for ``run_anytime``."""
+
+    states: list
+
+    @property
+    def done(self) -> torch.Tensor:
+        return torch.cat([st.done for st in self.states])
 
 
 def _step_lanes(batch: FleetBatch, x_current, delta_max, x_init, steps: int,
-                live: np.ndarray):
+                live: np.ndarray, capture_trace: bool = False,
+                anytime: Optional[AnytimeConfig] = None):
     """``hot_loop="vmap"``'s warm tick: each live tenant's incremental solve
     and rounding alone at its true shape, zero-embedded; frozen lanes keep
-    zeros (the caller puts their warm start back)."""
+    zeros (the caller puts their warm start back). Traced, each lane's rows
+    land in its row of a (B, steps) trace; under ``anytime`` every live
+    lane's chunked solve advances in one loop against one clock, as the
+    batched engine's lanes do. Returns ``(x_rel, x_int, iters, trace,
+    deadline_hit)``."""
     x_rel = torch.zeros_like(x_current)
     x_int = torch.zeros_like(x_current)
-    iters = torch.zeros(batch.B, dtype=torch.int64, device=x_current.device)
-    for b in np.nonzero(live)[0]:
-        n = int(batch.n_true[b])
-        pb = tenant_problem(batch, b)
-        xr, it = solve_incremental_info(pb, x_current[b, :n], delta_max[b],
-                                        x_init=x_init[b, :n], steps=steps)
-        x_rel[b, :n], iters[b] = xr, it
-        x_int[b, :n] = round_and_polish(pb, xr)
-    return x_rel, x_int, iters
+    dev = x_current.device
+    iters = torch.zeros(batch.B, dtype=torch.int64, device=dev)
+    lanes = [int(b) for b in np.nonzero(live)[0]]
+    n = {b: int(batch.n_true[b]) for b in lanes}
+    pbs = {b: tenant_problem(batch, b) for b in lanes}
+    trace = _empty_trace(batch.B, int(steps), dev) if capture_trace else None
+    hit = None
+    if anytime is not None:
+        cfg = PGDConfig(max_iters=int(steps))
+        stacked = {b: unsqueeze_problem(pbs[b]) for b in lanes}
+        args = {b: (x_current[b, :n[b]][None], delta_max[b:b + 1])
+                for b in lanes}
+        state, report = run_anytime(
+            lambda: _LaneStates([incremental_anytime_init(
+                stacked[b], *args[b], x_init[b, :n[b]][None], cfg)
+                for b in lanes]),
+            lambda s, e: _LaneStates([incremental_anytime_chunk(
+                stacked[b], *args[b], st, e, cfg)
+                for b, st in zip(lanes, s.states)]),
+            cfg, anytime)
+        hit = report.deadline_hit
+        solved = {b: (st.x_best[0], st.it[0])
+                  for b, st in zip(lanes, state.states)}
+    else:
+        solved = {}
+        for b in lanes:
+            out = solve_incremental_info(
+                pbs[b], x_current[b, :n[b]], delta_max[b],
+                x_init=x_init[b, :n[b]], steps=steps,
+                capture_trace=capture_trace)
+            solved[b] = out[:2]
+            if capture_trace:
+                for rows, row in zip(trace, out[2]):
+                    rows[b] = row
+    for b in lanes:
+        xr, it = solved[b]
+        x_rel[b, :n[b]], iters[b] = xr, it
+        x_int[b, :n[b]] = round_and_polish(pbs[b], xr)
+    return x_rel, x_int, iters, trace, hit

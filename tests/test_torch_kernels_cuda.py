@@ -235,3 +235,122 @@ def test_sequential_replay_equals_vmap_on_the_card(cuda):
         for sa, sb in zip(a.steps, b.steps):
             np.testing.assert_array_equal(sa.counts, sb.counts)
         assert a.metrics == b.metrics
+
+
+def _warm_fleet(device, B=4, stride=40, scale=3.0):
+    """B warm lanes on a catalog: the problems at ``scale`` x the base
+    demand, warm-started from a rounded cold answer at the base demand."""
+    from repro_torch.core import (Catalog, make_cloud_catalog,
+                                  multistart_solve, problem_from_demand)
+    cat = Catalog(make_cloud_catalog().instances[::stride])
+    base = np.array([8.0, 16.0, 4.0, 100.0])
+    probs, X = [], []
+    for b in range(B):
+        d = base * (0.6 + 0.3 * b)
+        X.append(multistart_solve(problem_from_demand(cat, d, device=device),
+                                  n_starts=2).x_int.cpu().numpy())
+        probs.append(problem_from_demand(cat, d * scale, device=device))
+    return stack_problems(probs, device=device), np.stack(X)
+
+
+def test_anytime_chunks_on_the_kernel_equal_the_monolithic_step(cuda):
+    """The chunked anytime engine on the card, through the fleet kernel:
+    a budget that never expires gives the untruncated step bit for bit
+    (x, x_int, iters), and the chunk loop launches the kernel (the count
+    differs from the monolithic loop's by its frozen trailing
+    iterations)."""
+    from repro_torch.core.pgd import AnytimeConfig
+    from repro_torch.fleet import solve_fleet_step
+    batch, X = _warm_fleet(cuda)
+    ops.reset_launches()
+    off = solve_fleet_step(batch, X, 64.0, device=cuda)
+    launches_off = dict(ops.LAUNCHES)
+    for chunk in (8, 32):
+        ops.reset_launches()
+        on = solve_fleet_step(batch, X, 64.0, device=cuda,
+                              anytime=AnytimeConfig(deadline_ms=1e9,
+                                                    chunk_iters=chunk))
+        assert on.deadline_hit is False
+        for f in ("x", "x_int", "iters", "fun_int", "feasible"):
+            assert torch.equal(getattr(on, f), getattr(off, f)), f
+        assert ops.LAUNCHES["alloc_objective_fleet"] > 0
+        assert ops.LAUNCHES["alloc_objective_fleet_value"] > 0
+    assert launches_off["alloc_objective_fleet"] > 0
+    assert launches_off["alloc_objective_fleet_value"] > 0
+    # a spent budget: the projected warm start, feasible after rounding
+    ops.reset_launches()
+    cut = solve_fleet_step(batch, X, 64.0, device=cuda,
+                           anytime=AnytimeConfig(deadline_ms=0.0))
+    assert cut.deadline_hit and int(cut.iters.max()) == 0
+    assert bool(cut.feasible.all())
+    assert ops.LAUNCHES["alloc_objective_fleet"] > 0
+
+
+def test_traced_step_equals_untraced_on_the_card(cuda):
+    from repro_torch.fleet import solve_fleet_step
+    batch, X = _warm_fleet(cuda)
+    off = solve_fleet_step(batch, X, 64.0, device=cuda)
+    ops.reset_launches()
+    on = solve_fleet_step(batch, X, 64.0, device=cuda, capture_trace=True)
+    assert ops.LAUNCHES["alloc_objective_fleet"] > 0
+    for f in ("x", "x_int", "iters", "fun_int"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+    merit = on.trace.merit
+    assert merit.shape == (batch.B, 600) and merit.is_cuda
+    written = torch.isfinite(merit).sum(1)
+    assert torch.equal(written, on.iters)
+    last = merit.gather(1, (on.iters - 1)[:, None])[:, 0]
+    f_rel = obj.objective(batch.problem, on.x)
+    torch.testing.assert_close(last, f_rel, rtol=1e-6, atol=0)
+
+
+def test_serve_session_kernel_against_plain(cuda):
+    """A 2-lane ServeEngine session on the card with the kernel and with
+    hot_loop="ref": the same feasibility and objectives within the
+    replay's tolerance per decision; the plain session launches nothing."""
+    from repro_torch.core import Catalog, make_cloud_catalog
+    from repro_torch.serve import ServeEngine
+    cat = Catalog(make_cloud_catalog().instances[::40])
+    base = np.array([8.0, 16.0, 4.0, 100.0])
+    sessions = {}
+    for hot_loop in ("kernel", "ref"):
+        ops.reset_launches()
+        eng = ServeEngine(cat, 2, hot_loop=hot_loop, device=cuda)
+        eng.register("a", demand=base)
+        eng.register("b", demand=base * 0.6)
+        eng.tick()
+        for t in range(3):
+            eng.submit("a", base * (1.1 + 0.2 * t))
+            if t != 1:
+                eng.submit("b", base * (0.7 + 0.1 * t))
+            eng.tick()
+        sessions[hot_loop] = (eng.records, dict(ops.LAUNCHES))
+    (kern, k_l), (plain, p_l) = sessions["kernel"], sessions["ref"]
+    assert k_l["alloc_objective"] > 0 and k_l["alloc_objective_fleet"] > 0
+    assert not any(p_l.values())
+    assert len(kern) == len(plain) == 7
+    for rk, rp in zip(kern, plain):
+        assert (rk.tenant, rk.cold, rk.staleness, rk.feasible) == (
+            rp.tenant, rp.cold, rp.staleness, rp.feasible)
+        np.testing.assert_allclose(rk.objective, rp.objective, rtol=0.05)
+
+
+def test_kkt_report_on_the_card_against_the_cpu(cuda):
+    """The certificate on the card (its gradient one launch of the
+    single-problem kernel) against the same certificate on the CPU."""
+    from repro_torch.core import (Catalog, make_cloud_catalog,
+                                  multistart_solve, problem_from_demand)
+    from repro_torch.core.kkt import kkt_report
+    from repro_torch.core.problem import problem_to
+    cat = Catalog(make_cloud_catalog().instances[::10])
+    prob = problem_from_demand(cat, np.array([8.0, 16.0, 4.0, 100.0]),
+                               device=cuda)
+    x = multistart_solve(prob, n_starts=2).best.x
+    ops.reset_launches()
+    got = kkt_report(prob, x)
+    assert ops.LAUNCHES["alloc_objective"] == 1
+    want = kkt_report(problem_to(prob, "cpu"), x.cpu())
+    for f in want._fields:
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                   getattr(want, f).numpy(), rtol=1e-3,
+                                   atol=1e-4, err_msg=f)

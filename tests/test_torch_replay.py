@@ -128,18 +128,129 @@ def test_sequential_mode_runs_by_default():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(replay_mode="sequential", run_ca_baseline=False, health=object()),
     dict(replay_mode="batched", controller="mpc", run_ca_baseline=False),
-    dict(replay_mode="batched", run_ca_baseline=False,
-         capture_solver_trace=True),
-    dict(replay_mode="batched", run_ca_baseline=False, health=object()),
-    dict(replay_mode="batched", run_ca_baseline=False, anytime=object()),
 ])
 def test_unported_options_raise(kwargs):
     cat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tfleet.replay_fleet(cat, _specs(tfleet.TenantSpec, tfleet.make_trace),
                             device="cpu", **kwargs)
+
+
+def _tight(Config):
+    """An anytime budget that truncates every warm solve: a fake clock
+    burning 5 ms a reading against 12 ms, 4-iteration chunks."""
+    t = [0.0]
+
+    def clock():
+        t[0] += 5e-3
+        return t[0]
+
+    return Config(deadline_ms=12.0, chunk_iters=4, clock=clock)
+
+
+OPT_T = 2   # ticks of the options' replays: one cold, one warm
+
+
+def _options_pair(monkeypatch, mode, option):
+    """Both packages replay the fleet with one observer or budget on (the
+    port's cold starts fed from the reference's); returns ``(ref, port,
+    ref_health, port_health)``."""
+    import repro.core.multistart as jms
+    import repro.obs as jobs
+    import repro_torch.core.multistart as tms
+    import repro_torch.obs as tobs
+    from repro.core.pgd import AnytimeConfig as JAnytime
+    from repro_torch.core.pgd import AnytimeConfig as TAnytime
+
+    jcat = jcore.Catalog(jcore.make_cloud_catalog().instances[::40])
+    tcat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
+    starts = []
+    mod_j, mod_t, name = ((jreplay, treplay, "make_fleet_starts")
+                          if mode == "batched"
+                          else (jms, tms, "make_starts"))
+    make = getattr(mod_j, name)
+
+    def capture(*a, **kw):
+        out = make(*a, **kw)
+        starts.append(np.array(out))
+        return out
+
+    monkeypatch.setattr(mod_j, name, capture)
+    fed = iter(starts)
+    monkeypatch.setattr(mod_t, name,
+                        lambda *a, **kw: torch.as_tensor(next(fed)))
+    jkw, tkw, health = {}, {}, (None, None)
+    if option == "health":
+        health = (jobs.HealthMonitor(), tobs.HealthMonitor())
+        jkw, tkw = dict(health=health[0]), dict(health=health[1])
+    elif option == "trace":
+        jkw = tkw = dict(capture_solver_trace=True)
+    else:
+        jkw, tkw = (dict(anytime=_tight(JAnytime)),
+                    dict(anytime=_tight(TAnytime)))
+    ref = jfleet.replay_fleet(jcat, _specs(jfleet.TenantSpec,
+                                           jfleet.make_trace, OPT_T),
+                              replay_mode=mode, run_ca_baseline=False, **jkw)
+    port = tfleet.replay_fleet(tcat, _specs(tfleet.TenantSpec,
+                                            tfleet.make_trace, OPT_T),
+                               replay_mode=mode, run_ca_baseline=False,
+                               device="cpu", **tkw)
+    assert next(fed, None) is None
+    return ref, port, health
+
+
+@pytest.mark.parametrize("mode,option", [
+    ("sequential", "health"), ("batched", "trace"), ("batched", "health"),
+    ("batched", "anytime")])
+def test_ported_options_match_reference(monkeypatch, mode, option):
+    """The options that raised until this slice: each runs in the port and
+    returns what the reference's engine returns on the same fleet."""
+    ref, port, (hj, ht) = _options_pair(monkeypatch, mode, option)
+    for tr, tp in zip(ref.tenants, port.tenants):
+        assert len(tp.steps) == len(tr.steps) == OPT_T
+        assert ([s.metrics.satisfied for s in tp.steps]
+                == [s.metrics.satisfied for s in tr.steps])
+        assert ([s.deadline_hit for s in tp.steps]
+                == [s.deadline_hit for s in tr.steps]
+                == [False] + [option == "anytime"] * (OPT_T - 1))
+    cost_r = np.asarray([t.metrics.cost_integral for t in ref.tenants])
+    cost_p = np.asarray([t.metrics.cost_integral for t in port.tenants])
+    np.testing.assert_allclose(cost_p, cost_r, rtol=TENANT_RTOL)
+    if option == "anytime":
+        # truncated after 8 iterations in both: the same counts
+        for tr, tp in zip(ref.tenants, port.tenants):
+            for sr, sp in zip(tr.steps, tp.steps):
+                assert sp.solver_iters == sr.solver_iters
+                np.testing.assert_array_equal(sp.counts, sr.counts)
+    if option == "trace":
+        assert len(port.solver_traces) == len(ref.solver_traces) == 3
+        for lr, lp, tp in zip(ref.solver_traces, port.solver_traces,
+                              port.tenants):
+            assert len(lp) == len(lr) == OPT_T - 1   # one per warm tick
+            for rr, rp, step in zip(lr, lp, tp.steps[1:]):
+                assert rp.merit.shape == np.asarray(rr.merit).shape
+                k = int(np.isfinite(rp.merit).sum())
+                assert k == step.solver_iters > 0
+                assert np.isnan(rp.merit[k:]).all()
+                # the first rows agree; later ones part on float32 rounding
+                np.testing.assert_allclose(rp.merit[:8],
+                                           np.asarray(rr.merit)[:8],
+                                           rtol=1e-4, atol=1e-4)
+    else:
+        assert port.solver_traces is None and ref.solver_traces is None
+    if option == "health":
+        rj, rt = hj.report(), ht.report()
+        assert port.metrics.health is rt
+        for f in ("slo_breach_ticks", "churn_violation_ticks",
+                  "spot_interruption_ticks", "deadline_truncated_ticks",
+                  "nonfinite_events", "ticks_observed",
+                  "compile_excluded_ticks", "kkt_ticks_certified"):
+            assert getattr(rt, f) == getattr(rj, f), f
+        assert rt.kkt_ticks_certified == 3 * OPT_T
+        assert np.isfinite(rt.worst_kkt_stationarity)
+        assert any("health:" in ln for ln in
+                   port.metrics.summary().splitlines())
 
 
 def test_malformed_specs_and_fleets_raise():
