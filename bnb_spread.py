@@ -8,7 +8,8 @@ problem, for the port's kernel and plain paths.
 On the full catalog (n = 1880), as ``optimize(use_bnb=True, n_starts=6,
 seed=0)`` runs it: each engine solves the multistart once
 (``multistart_solve(prob, 6, seed=0)``), then runs ``branch_and_bound``
-(24 nodes) from its best relaxed start on the problem with ``c`` or ``d``
+(``chip_smoke.BNB_NODES`` nodes, as the smoke's bnb phase) from its best
+relaxed start on the problem with ``c`` or ``d``
 scaled by 1 +- 2^-23 (each entry moves by at most one float32 ulp) and on
 the unchanged problem. Every answer is eq. (1) at the committed counts
 (the multistart's where they are better, as ``optimize`` keeps them) on
@@ -30,7 +31,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-NODES, STARTS, SEED = 24, 6, 0
+STARTS, SEED = 6, 0
 
 
 def main() -> int:
@@ -52,7 +53,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import REF_S4_BNB, nvidia_smi
+    from chip_smoke import BNB_NODES, REF_S4_BNB, nvidia_smi
     from repro_torch.core import objective as obj
     from repro_torch.core.api import problem_from_scenario
     from repro_torch.core.branch_bound import branch_and_bound
@@ -89,7 +90,8 @@ def main() -> int:
             ops.reset_launches()
             t0 = time.perf_counter()
             bnb = branch_and_bound(p, ms.best.x.cpu().numpy(),
-                                   max_nodes=NODES, use_kernel=use_kernel)
+                                   max_nodes=BNB_NODES,
+                                   use_kernel=use_kernel)
             wall = time.perf_counter() - t0
             x = (ms.x_int.cpu().numpy() if ms_fun < bnb.fun else bnb.x)
             fun = float(obj.objective(

@@ -83,7 +83,8 @@ Phases, one JSON object per line:
              1.05 x the CA's and the mean savings lie in 30-85%
              (tests/core/test_scenarios_api.py).
    bnb     — branch-and-bound: ``optimize(use_bnb=True, n_starts=6,
-             seed=0)`` (24 nodes) on s4_memory with the kernel and plain,
+             seed=0, bnb_nodes=8)`` on s4_memory (24 nodes until the
+             priced-scenario phases joined) with the kernel and plain,
              launch counts zeroed just before each run and read just
              after: nodes explored, relaxation solves, incumbent updates,
              gap, wall seconds, launches by entry and shape, and the cost
@@ -107,6 +108,31 @@ Phases, one JSON object per line:
              tenant at every tick, bit for bit, and the kernel replay lies
              within rtol 0.05 per tenant and 2e-2 over the fleet of the
              sequential one, with identical satisfaction flags.
+   scenario_terms — the priced-scenario path: (a) eq. (1) with all
+             three scenario terms attached, the kernel route against the
+             plain route (rtol = atol = 1e-4) at the single-problem
+             S = 72, n = 3760 and the fleet B = 8, n = 4096, T = 1 and
+             12; (b) the three fleets of benchmarks/scenario_bench.py
+             (``with_slo_pricing`` 2.0, ``with_priority_classes`` at
+             eviction price 0.6, ``make_spot_fleet`` at rate 0.08: n =
+             3760, padded to 4096) on the full catalog, 8 tenants, 6 ticks
+             (the bench's 24 cut for time), batched, CA on, with the
+             kernel and with hot_loop="ref", launch counts zeroed just
+             before each run and read just after: cost, SLO ticks, churn,
+             savings against the CA; the kernel run within the replay's
+             tolerances of the plain one, or, tenant by tenant, of one of
+             the plain run's twins under one-ulp demand changes; no
+             interrupted spot twin held; (c) ``grid_search`` on
+             s3_enterprise with benchmarks/solver_bench.py's 3 x 3 grid,
+             kernel and plain, every point's rounded cost within 0.05.
+   bucketing — 32 tenants spread over ``instances[::k]``, k in 1, 2, 8,
+             40: ``solve_fleet_bucketed`` with the kernel and plain and
+             ``solve_fleet`` over one stack padded to 2048, from the same
+             starts; seconds, ``padding_stats`` both ways, integer
+             objectives within the replay's tolerances with equal
+             feasibility. slice_shapes — the kernel at these two phases'
+             shapes (n = 4096, the Pareto grid's B = 9, the four
+             buckets) against its plain version, timed with its bound.
    serve_alloc — the online allocation service (``repro_torch.serve``):
              the demo session of ``python -m repro_torch.serve`` (full
              catalog, 8 lanes, 24 ticks, flash-crowd demand, a departure
@@ -240,14 +266,18 @@ FUN_RTOL = 1e-4               # kernel vs plain optimize: eq. (1) at the counts
 # the search changes the reference's answer most, kernel and plain (a
 # kernel run of s3_enterprise, the other such scenario, was cut for time)
 BNB_RUNS = (("s4_memory", "kernel", True), ("s4_memory", "plain", False))
-# eq. (1) at the counts optimize(use_bnb=True, n_starts=6, seed=0) commits
-# on s4_memory in the reference, on the unchanged problem ("none") and with
-# c or d scaled by 1 +- 2^-23 (each entry moves by at most one float32 ulp;
-# tests/test_torch_bnb_spread.py reproduces them): a one-ulp change moves
-# the reference's own answer by 9%, past TENANT_RTOL
-REF_S4_BNB = {"none": 0.5736375451087952, "c+": 0.6254016757011414,
+# the search's node budget: 8 since the priced-scenario phases joined the
+# smoke (the default 24 took 88-110 s a run on the card, 12 took 71-81 s)
+BNB_NODES = 8
+# eq. (1) at the counts optimize(use_bnb=True, n_starts=6, seed=0,
+# bnb_nodes=BNB_NODES) commits on s4_memory in the reference, on the
+# unchanged problem ("none") and with c or d scaled by 1 +- 2^-23 (each
+# entry moves by at most one float32 ulp; tests/test_torch_bnb_spread.py
+# reproduces them): a one-ulp change moves the reference's own answer by
+# 7.6%, past TENANT_RTOL
+REF_S4_BNB = {"none": 0.5812824368476868, "c+": 0.6254016757011414,
               "c-": 0.6254016757011414, "d+": 0.6254016757011414,
-              "d-": 0.5736375451087952}
+              "d-": 0.5812824368476868}
 # the sequential phase's engines (name, replay_mode, hot_loop) and tenants
 SEQUENTIAL_RUNS = (("sequential", "sequential", "kernel"),
                    ("vmap", "batched", "vmap"),
@@ -303,6 +333,24 @@ RWKV_CASES = {
     "hs16-chunk16": (8, 1024, 256, 16, 16, (0.7, 0.999), "float32"),
     "bf16": (8, 1024, 64, 64, 64, (0.7, 0.999), "bfloat16"),
 }
+# the priced-scenario fleets of benchmarks/scenario_bench.py::_fleet on
+# the full catalog (base demand x 25, noise 0.08, 2 starts, churn 6),
+# 6 ticks (1 cold, 5 warm) of the bench's 24, and solver_bench's grid
+SCENARIO_TENANTS, SCENARIO_TICKS = 8, 6
+SCENARIO_BASE = [8.0, 16.0, 4.0, 100.0]
+SCENARIO_PRIORITIES = [("critical", "standard", "batch")[i % 3]
+                       for i in range(SCENARIO_TENANTS)]
+EVICTION_PRICE = 0.6
+GRID_ALPHAS, GRID_GAMMAS = (0.005, 0.02, 0.1), (0.001, 0.005, 0.02)
+L_RUNGS = 12                  # SolverConfig().n_backtracks
+# demand scalings 1 + k 2^-23 of the plain replay's one-ulp twins: where a
+# scenario replay rests on near-tied roundings, a tenant that parts from
+# the plain replay is held to the answers those twins reach (the
+# priority fleet's tenant 2 does; tests/test_torch_scenario_spread.py
+# shows the reference's own answer there moving by 22% under one ulp)
+ULP_STEPS = (1, -1)
+# the bucketed fleet: tenants spread over instances[::k] of the catalog
+BUCKET_TENANTS, BUCKET_STRIDES = 32, (1, 2, 8, 40)
 # base demands of examples/fleet_replay.py's four tenants, by trace kind
 BASES = {"diurnal": [8, 16, 4, 100.0], "flash_crowd": [4, 8, 2, 50.0],
          "ramp": [6, 24, 3, 150.0], "weekly": [16, 64, 6, 300.0]}
@@ -1188,11 +1236,12 @@ def scenario_checks(dev, ops) -> dict:
 
 class ShapeCounts:
     """Counts the alloc_objective kernel's launches by entry and shape
-    (``entry@B=..,T=..``) while in a ``with`` block, by wrapping the
-    wrappers' one launch function."""
+    (``entry@B=..,T=..``, and ``,n=..`` with ``with_n``) while in a
+    ``with`` block, by wrapping the wrappers' one launch function."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, with_n: bool = False):
         self.ops = ops
+        self.with_n = with_n
         self.counts = collections.Counter()
 
     def __enter__(self):
@@ -1200,7 +1249,8 @@ class ShapeCounts:
 
         def counted(entry, X, *a, **kw):
             out = launch(entry, X, *a, **kw)
-            self.counts[f"{entry}@B={X.shape[0]},T={X.shape[1]}"] += 1
+            n = f",n={X.shape[2]}" if self.with_n else ""
+            self.counts[f"{entry}@B={X.shape[0]},T={X.shape[1]}{n}"] += 1
             return out
 
         self.ops._launch = counted
@@ -1216,7 +1266,7 @@ class ShapeCounts:
 
 def bnb_checks(dev, ops, scen) -> dict:
     """Branch-and-bound on the card through ``optimize(use_bnb=True,
-    n_starts=6, seed=0)`` (24 nodes, the default) over the full catalog,
+    n_starts=6, seed=0)`` (BNB_NODES nodes) over the full catalog,
     the runs of BNB_RUNS, launch counts zeroed just before each run and
     read just after. Beside each: nodes explored, relaxation solves,
     incumbent updates, gap, wall seconds, launches by entry and shape, and
@@ -1271,6 +1321,7 @@ def bnb_checks(dev, ops, scen) -> dict:
                 s0 = time.perf_counter()
                 res = api_mod.optimize(catalog, sc, n_starts=SCENARIO_STARTS,
                                        seed=0, use_bnb=True,
+                                       bnb_nodes=BNB_NODES,
                                        use_kernel=use_kernel, device=dev)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - s0
@@ -1442,6 +1493,394 @@ def sequential_checks(catalog, tenants, ops, replay_mod) -> dict:
         raise AssertionError(f"the kernel replay disagrees with the "
                              f"sequential one: {rec}")
     return rec
+
+
+def _replay_record(out, wall, launches, shapes) -> dict:
+    """The numbers a scenario replay prints: cost, SLO ticks, churn and
+    savings against the CA, wall seconds and launches."""
+    m = out.metrics
+    return {"wall_s": wall, "cost_integral": m.total_cost_integral,
+            "slo_violation_ticks": m.total_slo_violation_ticks,
+            "total_churn": m.total_churn,
+            "ca_cost_integral": m.baseline_cost_integral,
+            "ca_slo_violation_ticks": sum(t.slo_violation_ticks
+                                          for t in m.baseline),
+            "savings_vs_ca_pct": m.cost_savings_vs_baseline_pct,
+            "launches": launches, "launches_by_shape": shapes}
+
+
+def _held_interrupted_twins(specs, out) -> int:
+    """(tenant, tick) cells that hold a spot twin its availability row
+    marks down."""
+    import numpy as np
+    held = 0
+    for spec, rep in zip(specs, out.tenants):
+        if spec.spot_idx is None:
+            continue
+        avail = np.asarray(spec.spot_availability)
+        for t, step in enumerate(rep.steps):
+            down = spec.spot_idx[avail[min(t, len(avail) - 1)] <= 0.0]
+            held += int((step.counts[down] > 0).any())
+    return held
+
+
+def _fleet_agreement(got, want) -> dict:
+    """Per-tenant and fleet relative differences of two replays' cost
+    integrals, and whether their per-tick satisfaction flags are equal."""
+    import numpy as np
+    a = np.asarray([r.metrics.cost_integral for r in got.tenants])
+    b = np.asarray([r.metrics.cost_integral for r in want.tenants])
+    sat = lambda o: [[s.metrics.satisfied for s in r.steps]
+                     for r in o.tenants]
+    return {"max_tenant_rel_diff": float((np.abs(a - b) / np.abs(b)).max()),
+            "fleet_rel_diff": float(abs(a.sum() - b.sum()) / b.sum()),
+            "satisfied_flags_equal": sat(got) == sat(want)}
+
+
+def _agrees(rec) -> bool:
+    return (rec["max_tenant_rel_diff"] <= TENANT_RTOL
+            and rec["fleet_rel_diff"] <= FLEET_RTOL
+            and rec["satisfied_flags_equal"])
+
+
+def _within_spread(kern, plains) -> dict:
+    """Whether each tenant of the kernel replay lies within TENANT_RTOL of
+    the same tenant in one of ``plains`` (the plain replay and its twins
+    under one-ulp demand changes) with that run's satisfaction flags, and
+    the fleet's cost integral within FLEET_RTOL of the sum of those chosen
+    tenants' integrals; and the plain runs' own largest per-tenant
+    spread."""
+    import numpy as np
+    cost = lambda o: np.asarray([r.metrics.cost_integral for r in o.tenants])
+    flags = lambda o: [[s.metrics.satisfied for s in r.steps]
+                       for r in o.tenants]
+    k, kf = cost(kern), flags(kern)
+    ps = [(cost(p), flags(p)) for p in plains]
+    near, chosen = [], []
+    for t in range(len(k)):
+        cands = [(abs(k[t] - c[t]) / abs(c[t]), c[t]) for c, f in ps
+                 if f[t] == kf[t]]
+        rel, c_t = min(cands, default=(float("inf"), float("nan")))
+        near.append(float(rel))
+        chosen.append(c_t)
+    fleet = float(abs(k.sum() - sum(chosen)) / sum(chosen))
+    spread = np.max([np.abs(c - ps[0][0]) / np.abs(ps[0][0])
+                     for c, _ in ps], axis=0)
+    return {"tenant_rel_diff_to_nearest_plain": near,
+            "fleet_rel_diff_to_chosen_plain": fleet,
+            "plain_one_ulp_spread": [float(v) for v in spread],
+            "within": bool(max(near) <= TENANT_RTOL
+                           and fleet <= FLEET_RTOL)}
+
+
+def scenario_base_specs(TenantSpec, make_trace) -> list:
+    """The tenants of benchmarks/scenario_bench.py::_fleet before pricing:
+    SCENARIO_TENANTS alternating diurnal and flash_crowd around
+    SCENARIO_BASE x 25 x (0.7 + 0.2 (s mod 3)), noise 0.08, 2 starts,
+    churn 6, SCENARIO_TICKS ticks. Built with the given ``TenantSpec`` and
+    ``make_trace``, so a CPU test can build the same fleet with the JAX
+    package's."""
+    import numpy as np
+    base = np.asarray(SCENARIO_BASE) * 25
+    specs = []
+    for s in range(SCENARIO_TENANTS):
+        kind = ("diurnal", "flash_crowd")[s % 2]
+        kw = dict(seed=s, noise=0.08)
+        kw.update(dict(amplitude=0.45, phase=3.0 * s) if kind == "diurnal"
+                  else dict(burst_scale=2.5, decay=5.0))
+        specs.append(TenantSpec(
+            name=f"{kind}{s}", n_starts=2, delta_max=6.0,
+            trace=make_trace(kind, base * (0.7 + 0.2 * (s % 3)),
+                             SCENARIO_TICKS, **kw)))
+    return specs
+
+
+def scenario_terms_checks(dev, ops) -> tuple:
+    """The priced-scenario path on the card: (a) eq. (1) with all three
+    scenario terms attached (spot risk on the spot catalog's twins, an SLO
+    price, a flat eviction price), the kernel route against the plain
+    route at RTOL / ATOL: the single-problem form at S = 72, n = 3760 and
+    the fleet form at B = 8, n = 4096, T = 1 and 12; (b) the three fleets
+    of benchmarks/scenario_bench.py (``with_slo_pricing``,
+    ``with_priority_classes``, ``make_spot_fleet``) on the full catalog,
+    SCENARIO_TENANTS tenants, SCENARIO_TICKS ticks, each replayed batched
+    with the CA on, with the kernel and with ``hot_loop="ref"``, launch
+    counts zeroed just before each kernel run and read just after; (c)
+    ``grid_search`` on s3_enterprise with the solver bench's grid, kernel
+    and plain. Raises unless (a) agrees, each kernel replay lies within
+    TENANT_RTOL per tenant and FLEET_RTOL over the fleet of its plain twin
+    with equal satisfaction — or, where it does not, each of its tenants
+    lies within TENANT_RTOL of the same tenant in the plain replay or in
+    one of its twins under one-ulp demand changes (ULP_STEPS), with that
+    run's satisfaction flags, and the fleet within FLEET_RTOL of the sum
+    of the tenants so chosen, as the bnb phase holds its answers to the
+    reference's one-ulp spread — launched both fleet entries (the plain
+    one nothing) and no replay holds an interrupted spot twin, and each
+    grid point's rounded cost and eq. (1) lie within TENANT_RTOL of plain.
+    Returns (record, probes): probes are (label, stacked problem, T) of the
+    spot fleet and the grid, whose shapes the kernels line times."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import repro_torch.fleet.replay as replay_mod
+    from repro_torch.core import objective as obj
+    from repro_torch.core import terms as tterms
+    from repro_torch.core.catalog import make_cloud_catalog
+    from repro_torch.core.pareto import _grid_problem, grid_search
+    from repro_torch.core.api import problem_from_scenario
+    from repro_torch.core.problem import lane, matvec, problem_to
+    from repro_torch.core.scenarios import build_scenarios
+    from repro_torch.fleet import (TenantSpec, bucket_dims, make_spot_fleet,
+                                   make_trace, replay_fleet, stack_problems,
+                                   with_priority_classes, with_slo_pricing)
+    catalog = make_cloud_catalog()
+    specs = scenario_base_specs(TenantSpec, make_trace)
+    spot_cat, spot_specs = make_spot_fleet(catalog, specs,
+                                           interruption_rate=0.08)
+    fleets = {
+        "slo": (catalog, with_slo_pricing(specs, price=2.0)),
+        "priority": (catalog, with_priority_classes(
+            specs, SCENARIO_PRIORITIES, catalog=catalog,
+            eviction_price=EVICTION_PRICE)),
+        "spot": (spot_cat, spot_specs)}
+
+    # (a) all three kinds on the spot fleet's tick-0 problems
+    gen = torch.Generator(device=dev).manual_seed(1)
+    probs = [replay_mod._make_controller(spot_cat, sp).make_problem(
+        np.asarray(sp.trace[0])) for sp in spot_specs]
+    extra = [tterms.make_term("slo_penalty", price=2.0),
+             tterms.make_term("priority_eviction",
+                              price=np.full(spot_cat.n, 0.05, np.float32))]
+    three = [tterms.with_terms(p, list(p.terms) + extra) for p in probs]
+    # the bucket the replay stacks the spot fleet in (n = 4096)
+    pad = dict(zip(("n_max", "m_max", "p_max"), bucket_dims(
+        spot_cat.n, len(spot_cat.matrices()[0]), len(spot_cat.providers))))
+    spot_stack = stack_problems(probs, device=dev, **pad).problem
+    three_stack = stack_problems(three, device=dev, **pad).problem
+    single = problem_to(three[0], dev)
+
+    def pts(prob, lead):
+        # points from 1e-4 to 1 of a unit box: the smaller ones fall short
+        # of the demand, so the SLO hinge and the shortage term are live
+        scale = torch.logspace(-4, 0, lead[-1], device=dev)[:, None]
+        mask = prob.mask if len(lead) == 1 else prob.mask[:, None, :]
+        return (torch.rand((*lead, prob.n), generator=gen, device=dev)
+                * scale * mask).contiguous()
+
+    B = SCENARIO_TENANTS
+    checks = []
+    for label, prob, X in (
+            ("single S=72", single, pts(single, (72,))),
+            (f"fleet B={B},T=1", three_stack, pts(three_stack, (B, 1))),
+            (f"fleet B={B},T={L_RUNGS}", three_stack,
+             pts(three_stack, (B, L_RUNGS)))):
+        fk, gk = obj.value_and_grad(prob, X, use_kernel=True)
+        fp, gp = obj.value_and_grad(prob, X, use_kernel=False)
+        rec = compare(f"terms {label}", torch.cat([fk.flatten(), gk.flatten()]),
+                      torch.cat([fp.flatten(), gp.flatten()]))
+        Kx = matvec(prob, prob.K, X)
+        short = (lane(prob, prob.d, Kx) - Kx > 0).any(-1)
+        checks.append({"case": label, "n": prob.n,
+                       "kinds": [t.kind for t in prob.terms],
+                       "short_share": float(short.float().mean()), **rec})
+
+    # (b) the three scenario fleets, kernel then plain
+    replays = {}
+    for name, (cat, fleet) in fleets.items():
+        runs = {}
+        for who, hot_loop in (("kernel", "kernel"), ("plain", "ref")):
+            ops.reset_launches()
+            with ShapeCounts(ops, with_n=True) as shapes:
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                out = replay_fleet(cat, fleet, replay_mode="batched",
+                                   run_ca_baseline=True, hot_loop=hot_loop,
+                                   device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - s0
+            counts = np.stack([s.counts for r in out.tenants
+                               for s in r.steps])
+            if not (np.isfinite(counts).all()
+                    and np.array_equal(counts, np.round(counts))):
+                raise AssertionError(f"{name} {who}: non-integral counts")
+            runs[who] = (out, _replay_record(out, wall, dict(ops.LAUNCHES),
+                                             shapes.by_shape()))
+        (k_out, k_rec), (p_out, p_rec) = runs["kernel"], runs["plain"]
+        agree = _fleet_agreement(k_out, p_out)
+        held = [_held_interrupted_twins(fleet, o) for o in (k_out, p_out)]
+        replays[name] = {"n": cat.n, "kinds": sorted({t.kind for sp in fleet
+                                                      for t in sp.terms}),
+                         "kernel": k_rec, "plain": p_rec, **agree,
+                         "interrupted_twins_held": held}
+        if not _agrees(agree):
+            # near-tied roundings: hold each tenant to the answers the
+            # plain replay itself gives under one-ulp demand changes
+            plains = [p_out]
+            for k in ULP_STEPS:
+                f = 1.0 + k * 2.0 ** -23
+                twin = [replace(sp, trace=np.asarray(sp.trace) * f)
+                        for sp in fleet]
+                plains.append(replay_fleet(cat, twin, replay_mode="batched",
+                                           run_ca_baseline=False,
+                                           hot_loop="ref", device=dev))
+            spread = _within_spread(k_out, plains)
+            replays[name]["one_ulp_plain_spread"] = spread
+            if not spread["within"]:
+                raise AssertionError(f"{name}: the kernel replay disagrees "
+                                     f"with the plain one and with its "
+                                     f"one-ulp twins: {agree}, {spread}")
+        if (not k_rec["launches"]["alloc_objective_fleet"]
+                or not k_rec["launches"]["alloc_objective_fleet_value"]
+                or any(p_rec["launches"].values())):
+            raise AssertionError(f"{name}: launches {k_rec['launches']}, "
+                                 f"plain {p_rec['launches']}")
+        if any(held):
+            raise AssertionError(f"{name}: interrupted spot twins held {held}")
+
+    # (c) the solver bench's Pareto grid on s3_enterprise
+    s3 = problem_from_scenario(catalog, build_scenarios(catalog)[2],
+                               device=dev)
+    grid = {}
+    for who, use_kernel in (("kernel", True), ("plain", False)):
+        ops.reset_launches()
+        with ShapeCounts(ops, with_n=True) as shapes:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            pts_ = grid_search(s3, alphas=GRID_ALPHAS, gammas=GRID_GAMMAS,
+                               use_kernel=use_kernel)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+        grid[who] = {"wall_s": wall, "launches": dict(ops.LAUNCHES),
+                     "launches_by_shape": shapes.by_shape(),
+                     "points": [{**p.params, "cost": p.cost,
+                                 "fragmentation": p.fragmentation,
+                                 "diversity": p.diversity,
+                                 "objective": p.objective,
+                                 "on_frontier": p.on_frontier}
+                                for p in pts_]}
+    cost = {w: np.asarray([p["cost"] for p in grid[w]["points"]])
+            for w in grid}
+    fval = {w: np.asarray([p["objective"] for p in grid[w]["points"]])
+            for w in grid}
+    grid["max_cost_rel_diff"] = float(
+        (np.abs(cost["kernel"] - cost["plain"]) / cost["plain"]).max())
+    grid["max_objective_rel_diff"] = float(
+        (np.abs(fval["kernel"] - fval["plain"]) / fval["plain"]).max())
+    if not (grid["max_cost_rel_diff"] <= TENANT_RTOL
+            and grid["max_objective_rel_diff"] <= TENANT_RTOL):
+        raise AssertionError(f"grid: kernel disagrees with plain: "
+                             f"{grid['max_cost_rel_diff']}, "
+                             f"{grid['max_objective_rel_diff']}")
+    if (not grid["kernel"]["launches"]["alloc_objective_fleet"]
+            or any(grid["plain"]["launches"].values())):
+        raise AssertionError(f"grid launches {grid['kernel']['launches']}, "
+                             f"plain {grid['plain']['launches']}")
+    settings = [(a, 0.5, 0.05, 50.0, g) for a in GRID_ALPHAS
+                for g in GRID_GAMMAS]
+    grid_stack = _grid_problem(s3, settings)
+    probes = [("spot", spot_stack, "alloc_objective_fleet", 1),
+              ("spot", spot_stack, "alloc_objective_fleet_value", L_RUNGS),
+              ("spot", spot_stack, "alloc_objective_fleet", 2),
+              ("spot", spot_stack, "alloc_objective_fleet_value",
+               2 * L_RUNGS),
+              ("grid", grid_stack, "alloc_objective_fleet", 1),
+              ("grid", grid_stack, "alloc_objective_fleet_value", L_RUNGS)]
+    return ({"tenants": SCENARIO_TENANTS, "ticks": SCENARIO_TICKS,
+             "objective_checks": checks, "replays": replays,
+             "grid": grid}, probes)
+
+
+def bucketing_checks(dev, ops, seed: int) -> tuple:
+    """Shape bucketing on the card: BUCKET_TENANTS tenants spread over the
+    full catalog's sub-catalogs ``instances[::k]``, k in BUCKET_STRIDES
+    (n = 1880, 940, 235, 47), each tenant's tick-0 demand from the replay
+    phase's tenant builder. ``solve_fleet_bucketed`` with the kernel and
+    plain (``hot_loop="ref"``), and ``solve_fleet`` over the fleet padded
+    to one n = 2048 stack with the kernel, from the same starts (drawn per
+    tenant at its true shape); launch counts zeroed just before the
+    bucketed kernel solve and read just after. Raises unless the bucketed
+    kernel solve lies within TENANT_RTOL per tenant and FLEET_RTOL over
+    the fleet of the bucketed plain one and of the global kernel one, with
+    equal feasibility, and launched in every bucket. Returns (record,
+    probes), probes (label, bucket's stacked problem, T) for the kernels
+    line."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import problem_from_demand
+    from repro_torch.core.catalog import Catalog, make_cloud_catalog
+    from repro_torch.fleet import (TenantSpec, bucket_problems, make_trace,
+                                   padding_stats, solve_fleet,
+                                   solve_fleet_bucketed, stack_problems)
+    full = make_cloud_catalog()
+    cats = [Catalog(full.instances[::k]) for k in BUCKET_STRIDES]
+    tenants = make_tenants(TenantSpec, make_trace, BUCKET_TENANTS, 1, seed)
+    probs = [problem_from_demand(cats[i % len(cats)],
+                                 np.asarray(sp.trace[0]), device=dev)
+             for i, sp in enumerate(tenants)]
+    bucketed = bucket_problems(probs, device=dev)
+    runs = {}
+
+    def run(who, fn):
+        ops.reset_launches()
+        with ShapeCounts(ops, with_n=True) as shapes:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+        runs[who] = (res, {"seconds": wall, "launches": dict(ops.LAUNCHES),
+                           "launches_by_shape": shapes.by_shape()})
+
+    run("bucketed_kernel", lambda: solve_fleet_bucketed(
+        probs, bucketed=bucketed, hot_loop="kernel", device=dev))
+    run("bucketed_plain", lambda: solve_fleet_bucketed(
+        probs, bucketed=bucketed, hot_loop="ref", device=dev))
+    glob = stack_problems(probs, n_max=2048, m_max=4, p_max=2, device=dev)
+    run("global_kernel", lambda: solve_fleet(glob, hot_loop="kernel",
+                                             device=dev))
+    f = {w: r.fun_int.cpu().numpy().astype(np.float64)
+         for w, (r, _) in runs.items()}
+    feas = {w: r.feasible.cpu().numpy() for w, (r, _) in runs.items()}
+
+    def agree(a, b):
+        rel = np.abs(f[a] - f[b]) / np.abs(f[b])
+        return {"max_tenant_rel_diff": float(rel.max()),
+                "fleet_rel_diff": float(abs(f[a].sum() - f[b].sum())
+                                        / abs(f[b].sum())),
+                "feasible_equal": bool(np.array_equal(feas[a], feas[b])),
+                "tenants_equal_exactly": int((f[a] == f[b]).sum())}
+
+    rec = {"tenants": BUCKET_TENANTS, "strides": list(BUCKET_STRIDES),
+           "n": [c.n for c in cats],
+           "buckets": [[int(x) for x in b.problem.K.shape]
+                       for b in bucketed.batches],
+           "padding_bucketed": padding_stats(probs, bucketed),
+           "padding_global": padding_stats(probs),
+           "runs": {w: r for w, (_, r) in runs.items()},
+           "kernel_vs_plain": agree("bucketed_kernel", "bucketed_plain"),
+           "bucketed_vs_global": agree("bucketed_kernel", "global_kernel"),
+           "feasible": int(feas["bucketed_kernel"].sum())}
+    for key in ("kernel_vs_plain", "bucketed_vs_global"):
+        r = rec[key]
+        if not (r["max_tenant_rel_diff"] <= TENANT_RTOL
+                and r["fleet_rel_diff"] <= FLEET_RTOL
+                and r["feasible_equal"]):
+            raise AssertionError(f"bucketing {key}: {r}")
+    shapes = runs["bucketed_kernel"][1]["launches_by_shape"]
+    for b in bucketed.batches:
+        n = b.problem.K.shape[2]
+        if not any(k.endswith(f",n={n}") for k in shapes):
+            raise AssertionError(f"bucket n={n} never launched the kernel")
+    if any(runs["bucketed_plain"][1]["launches"].values()):
+        raise AssertionError("the plain bucketed solve launched kernels")
+    n_starts = 4      # solve_fleet's default
+    probes = [(f"bucket n={b.problem.K.shape[2]}", b.problem, entry, T)
+              for b in bucketed.batches
+              for entry, T in (("alloc_objective_fleet", n_starts),
+                               ("alloc_objective_fleet_value",
+                                n_starts * L_RUNGS))]
+    return rec, probes
 
 
 def serve_alloc_checks(dev, ops, seed: int) -> dict:
@@ -2105,6 +2544,36 @@ def main() -> int:
                             replay_mod)
     emit({"phase": "sequential", "seconds": time.perf_counter() - t0, **seq})
 
+    # ---- scenario_terms: priced fleets and the Pareto grid ---------------
+    t0 = time.perf_counter()
+    scen_terms, term_probes = scenario_terms_checks(dev, ops)
+    emit({"phase": "scenario_terms", "seconds": time.perf_counter() - t0,
+          **scen_terms})
+
+    # ---- bucketing: shape-bucketed solving of a skewed fleet -------------
+    t0 = time.perf_counter()
+    buck, buck_probes = bucketing_checks(dev, ops, args.seed)
+    emit({"phase": "bucketing", "seconds": time.perf_counter() - t0, **buck})
+    # the kernel at these two phases' shapes against its plain version,
+    # timed; launches from the run that gave the shape
+    t0 = time.perf_counter()
+    new_shapes = []
+    for label, prob, name, T in term_probes + buck_probes:
+        B, n = prob.c.shape
+        key = f"{name}@B={B},T={T},n={n}"
+        if label == "spot":
+            shapes_seen = scen_terms["replays"]["spot"]["kernel"][
+                "launches_by_shape"]
+        elif label == "grid":
+            shapes_seen = scen_terms["grid"]["kernel"]["launches_by_shape"]
+        else:
+            shapes_seen = buck["runs"]["bucketed_kernel"]["launches_by_shape"]
+        rec = fleet_case(name, T, prob, timed=True)
+        new_shapes.append((label, key, rec, shapes_seen.get(key, 0)))
+    emit({"phase": "slice_shapes", "seconds": time.perf_counter() - t0,
+          "checks": [{"label": lb, "key": k, **r, "launches": c}
+                     for lb, k, r, c in new_shapes]})
+
     # ---- serve_alloc: the online allocation service ----------------------
     t0 = time.perf_counter()
     serve_alloc = serve_alloc_checks(dev, ops, args.seed)
@@ -2197,6 +2666,22 @@ def main() -> int:
                       "alloc_objective.cu",
             "replaces": REPLACES[name],
             "launches": serve_shapes[key],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None})
+    # this slice's shapes: the spot fleet (n = 4096), the Pareto grid and
+    # the buckets, with their launches in the run that gave them
+    for label, key, rec, launches in new_shapes:
+        name = key.split("@")[0]
+        if launches == 0:
+            raise AssertionError(f"{key} was never launched on its path")
+        kernels.append({
+            "name": f"{name} ({key.split('@')[1]}, {label})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/alloc_objective/csrc/"
+                      "alloc_objective.cu",
+            "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -4,8 +4,11 @@ A problem of the JAX reference, turned into numpy leaves (``np.asarray`` of
 each field), becomes the port's AllocationProblem on a device, so both
 packages can solve the identical problem. The dictionary holds the
 reference's ``AllocationProblem`` field names (``K``, ``E``, ``c``, ``d``,
-``mu``, ``g``, ``lb``, ``ub``, ``mask``) and ``params``, a mapping of the
-``PenaltyParams`` names (``alpha`` ... ``gamma``).
+``mu``, ``g``, ``lb``, ``ub``, ``mask``), ``params``, a mapping of the
+``PenaltyParams`` names (``alpha`` ... ``gamma``), and ``terms``, the
+attached scenario terms as ``(kind, {param: array})`` pairs (either
+package's ``PricedTerm`` turns into such a pair by :func:`terms_arrays`;
+the reference's ``make_term(kind, **params)`` takes it back).
 
 A model's parameters cross the same way: ``model_params_from_reference``
 takes the reference's parameter values as numpy arrays and returns the
@@ -20,7 +23,7 @@ import torch
 
 from .configs.base import ModelConfig
 from .core.problem import AllocationProblem, PenaltyParams
-from .core.terms import NOT_PORTED
+from .core.terms import make_term
 from .device import DeviceLike, resolve_device
 from .fleet.batching import FleetBatch
 from .models.transformer import init_model
@@ -28,32 +31,46 @@ from .models.transformer import init_model
 LEAVES = ("K", "E", "c", "d", "mu", "g", "lb", "ub", "mask")
 
 
+def _host(a) -> np.ndarray:
+    return np.array(a.detach().cpu() if torch.is_tensor(a) else a, np.float32)
+
+
 def problem_arrays(prob) -> dict:
     """The numpy leaves of any problem with the reference's field names
     (a reference problem, or the port's): the input of
     :func:`problem_from_arrays`."""
-    host = lambda a: np.array(a.detach().cpu() if torch.is_tensor(a) else a,
-                              np.float32)
-    out = {k: host(getattr(prob, k)) for k in LEAVES}
-    out["params"] = {f: host(getattr(prob.params, f))
+    out = {k: _host(getattr(prob, k)) for k in LEAVES}
+    out["params"] = {f: _host(getattr(prob.params, f))
                      for f in PenaltyParams._fields}
-    if prob.terms:
-        raise NotImplementedError(NOT_PORTED)
+    out["terms"] = terms_arrays(prob.terms)
     return out
+
+
+def terms_arrays(terms) -> list:
+    """Either package's attached terms as ``(kind, {param: numpy array})``
+    pairs, in attachment order."""
+    return [(t.kind, {k: _host(v) for k, v in t.params.items()})
+            for t in terms]
+
+
+def terms_from_arrays(pairs, device: DeviceLike = None) -> tuple:
+    """The port's PricedTerms from ``(kind, {param: array})`` pairs, float32
+    on ``device`` (single or stacked, as the arrays are)."""
+    dev = resolve_device(device)
+    return tuple(make_term(kind, **params).to(dev) for kind, params in pairs)
 
 
 def problem_from_arrays(arrays: Mapping, device: DeviceLike = None
                         ) -> AllocationProblem:
     """The port's AllocationProblem from the reference's fields as numpy
     arrays (single or stacked, as the arrays are), float32 on ``device``."""
-    if arrays.get("terms"):
-        raise NotImplementedError(NOT_PORTED)
     dev = resolve_device(device)
     put = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     params = PenaltyParams(*(put(arrays["params"][f])
                              for f in PenaltyParams._fields))
-    return AllocationProblem(params=params,
-                             **{k: put(arrays[k]) for k in LEAVES})
+    return AllocationProblem(
+        params=params, terms=terms_from_arrays(arrays.get("terms", ()), dev),
+        **{k: put(arrays[k]) for k in LEAVES})
 
 
 def fleet_batch_from_arrays(arrays: Mapping, n_true, m_true, p_true,

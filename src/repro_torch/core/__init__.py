@@ -5,8 +5,11 @@ branch-and-bound, the one-shot ``optimize`` pipeline over the paper's
 scenarios, the Cluster-Autoscaler baseline, incremental adoption (traced,
 or under an anytime deadline), the KKT certificate, and the controller's
 control loop, whose state the fleet replay and the serving engine
-drive."""
-from .catalog import Catalog, InstanceType, make_cloud_catalog
+drive; scenario terms (``terms``: SLO pricing, priority eviction, spot
+risk), parameter tuning (``pareto``) and the paper's §VII extensions
+(``extensions``)."""
+from .catalog import (Catalog, InstanceType, make_cloud_catalog,
+                      spot_catalog, spot_risk_prices)
 from .controller import ControllerStep, InfrastructureOptimizationController
 from .api import (OptimizeResult, optimize, problem_from_demand,
                   problem_from_scenario)
@@ -28,11 +31,15 @@ from .problem import AllocationProblem, PenaltyParams
 from .rounding import greedy_round, round_and_polish, scale_down
 from .scenarios import Scenario, build_scenarios, scaled_scenario
 from .solver import SolveResult, SolverConfig, phase1_point, solve_relaxation
-from .terms import BASE_TERMS, TERM_DEFS, TermDef, register_term
+from .terms import (BASE_TERMS, SCENARIO_TERMS, TERM_DEFS, PricedTerm,
+                    TermDef, make_term, register_term, term_signature,
+                    with_terms)
+from .pareto import grid_search, pareto_mask, sensitivity
 from . import workloads
 
 __all__ = [
-    "Catalog", "InstanceType", "make_cloud_catalog",
+    "Catalog", "InstanceType", "make_cloud_catalog", "spot_catalog",
+    "spot_risk_prices",
     "ControllerStep", "InfrastructureOptimizationController",
     "OptimizeResult", "optimize", "problem_from_demand",
     "problem_from_scenario", "BnBResult", "branch_and_bound", "NodePool", "default_pools_for",
@@ -47,5 +54,7 @@ __all__ = [
     "AllocationProblem", "PenaltyParams", "greedy_round", "round_and_polish",
     "scale_down", "Scenario", "build_scenarios", "scaled_scenario",
     "SolveResult", "SolverConfig", "phase1_point", "solve_relaxation",
-    "BASE_TERMS", "TERM_DEFS", "TermDef", "register_term", "workloads",
+    "BASE_TERMS", "SCENARIO_TERMS", "TERM_DEFS", "PricedTerm", "TermDef",
+    "make_term", "register_term", "term_signature", "with_terms",
+    "grid_search", "pareto_mask", "sensitivity", "workloads",
 ]

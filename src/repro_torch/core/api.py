@@ -20,7 +20,7 @@ from .multistart import multistart_solve
 from .problem import AllocationProblem, PenaltyParams
 from .scenarios import Scenario
 from .solver import SolverConfig
-from .terms import NOT_PORTED
+from .terms import with_terms
 
 
 @dataclass
@@ -52,10 +52,9 @@ def problem_from_demand(catalog: Catalog, demand: np.ndarray,
     in solver units); ``allowed_idx`` restricts the usable types (existing
     nodes stay allowed); ``existing`` lower-bounds the allocation;
     ``unavailable_idx`` zeroes mask, ub and lb of the listed types for this
-    tick (the spot-interruption overlay). Scenario ``terms`` are not ported
-    yet and raise."""
-    if terms:
-        raise NotImplementedError(NOT_PORTED)
+    tick (the spot-interruption overlay); ``terms`` attaches scenario
+    terms (``repro_torch.core.terms.with_terms``), priced in solver units
+    like every other objective quantity."""
     dev = resolve_device(device)
     K, E, c = catalog.matrices()
     d = np.asarray(demand, np.float32)
@@ -79,6 +78,8 @@ def problem_from_demand(catalog: Catalog, demand: np.ndarray,
         # lb too: an interrupted spot node is gone even if it was deployed
         prob = prob._replace(mask=prob.mask * keep_t, ub=prob.ub * keep_t,
                              lb=prob.lb * keep_t)
+    if terms:
+        prob = with_terms(prob, terms)
     return prob
 
 

@@ -4,10 +4,13 @@ machinery — port of ``repro.core.objective``.
 x is (..., n) for a single problem and (B, ..., n) for a stacked one; the
 value is per point and the gradient is shaped like x. On a CUDA tensor the
 four base terms come from the hand-written ``alloc_objective`` kernel (one
-launch for all points); on a CPU tensor they are the registry sum of
-``repro_torch.core.terms``, as in the reference. ``use_kernel=False`` asks
-for the registry sum on any device: the plain path a run can be compared
-with, never a fallback.
+launch for all points), as the Pallas kernel computes them, and the
+attached scenario terms are added in plain PyTorch
+(``terms.active_value`` / ``active_grad``), as the reference's fleet
+solver adds them around its kernel; on a CPU tensor f is the registry sum
+of ``repro_torch.core.terms`` over base and attached terms, as in the
+reference. ``use_kernel=False`` asks for the registry sum on any device:
+the plain path a run can be compared with, never a fallback.
 
 The barrier and penalty terms are written once, for single and stacked
 problems alike: the single-problem relaxation (``core.solver``) adds them
@@ -29,18 +32,31 @@ def _kernel_route(x: torch.Tensor, use_kernel: bool) -> bool:
     return use_kernel and x.is_cuda
 
 
-def _kernel_value_and_grad(prob: AllocationProblem, x: torch.Tensor,
-                           need_grad: bool):
-    """The kernel over every point of x at once: (f (...), g or None)."""
+def kernel_value_and_grad(prob: AllocationProblem, x: torch.Tensor,
+                          need_grad: bool, use_kernel: bool = True):
+    """eq. (1) over every point of x as the hand-batched hot loops compute
+    it: the four base terms from one launch of the ``alloc_objective``
+    kernel (its plain version where ``use_kernel`` is False or x lies on
+    the CPU), plus the attached scenario terms in plain PyTorch, as the
+    reference adds them around its Pallas kernel: (f (...), g or None)."""
     n = x.shape[-1]
     if is_stacked(prob):
         X = x.reshape(x.shape[0], -1, n).contiguous()
         if need_grad:
-            f, g = ops.fleet_value_and_grad(prob, X)
-            return f.reshape(x.shape[:-1]), g.reshape(x.shape)
-        return ops.fleet_value(prob, X).reshape(x.shape[:-1]), None
-    f, g = ops.batched_value_and_grad(prob, x.reshape(-1, n).contiguous())
-    return f.reshape(x.shape[:-1]), g.reshape(x.shape)
+            f, g = ops.fleet_value_and_grad(prob, X, use_kernel=use_kernel)
+            f, g = f.reshape(x.shape[:-1]), g.reshape(x.shape)
+        else:
+            f = ops.fleet_value(prob, X, use_kernel=use_kernel)
+            f, g = f.reshape(x.shape[:-1]), None
+    else:
+        f, g = ops.batched_value_and_grad(prob, x.reshape(-1, n).contiguous(),
+                                          use_kernel=use_kernel)
+        f, g = f.reshape(x.shape[:-1]), g.reshape(x.shape)
+    if prob.terms:
+        f = f + _terms.active_value(prob, x)
+        if g is not None:
+            g = g + _terms.active_grad(prob, x)
+    return f, g
 
 
 def objective_terms(prob: AllocationProblem, x: torch.Tensor
@@ -54,8 +70,7 @@ def objective(prob: AllocationProblem, x: torch.Tensor,
               use_kernel: bool = True) -> torch.Tensor:
     """f(x), one value per point."""
     if _kernel_route(x, use_kernel):
-        _terms.require_no_terms(prob)
-        return _kernel_value_and_grad(prob, x, need_grad=False)[0]
+        return kernel_value_and_grad(prob, x, need_grad=False)[0]
     return _terms.sum_terms(objective_terms(prob, x))
 
 
@@ -73,8 +88,7 @@ def value_and_grad(prob: AllocationProblem, x: torch.Tensor,
                    use_kernel: bool = True):
     """(f(x), grad f(x)) from one K@x / E@x pair (one kernel launch)."""
     if _kernel_route(x, use_kernel):
-        _terms.require_no_terms(prob)
-        return _kernel_value_and_grad(prob, x, need_grad=True)
+        return kernel_value_and_grad(prob, x, need_grad=True)
     Kx = matvec(prob, prob.K, x)
     Ex = matvec(prob, prob.E, x)
     return (_terms.sum_terms(_terms.term_values(prob, x, Kx, Ex)),

@@ -47,9 +47,10 @@ class AllocationProblem(NamedTuple):
     """Paper §II.A: min f(x) s.t. d - mu <= Kx <= d + g, x >= 0 (int relaxed).
 
     Shapes: K (m, n), E (p, n), c (n,), d/mu/g (m,), lb/ub/mask (n,), each
-    with a leading (B,) axis when stacked. ``terms`` holds attached
-    scenario terms; the port does not evaluate them yet (see
-    ``repro_torch.core.terms``), so it stays empty."""
+    with a leading (B,) axis when stacked. ``terms`` holds the attached
+    scenario terms (``repro_torch.core.terms.PricedTerm``s: SLO pricing,
+    priority eviction, spot risk), whose params lie on the problem's
+    device; the default ``()`` sums eq. (1)'s base terms only."""
 
     K: torch.Tensor
     E: torch.Tensor
@@ -84,9 +85,6 @@ class AllocationProblem(NamedTuple):
                params: Optional[PenaltyParams] = None, lb=None, ub=None,
                mask=None, ub_default: float = 1e4, terms: tuple = (),
                device: DeviceLike = None) -> "AllocationProblem":
-        if terms:
-            raise NotImplementedError(
-                "scenario terms are not ported yet")
         dev = resolve_device(device)
         K, E, c, d = (_as_f32(a, dev) for a in (K, E, c, d))
         m, n = K.shape
@@ -99,7 +97,11 @@ class AllocationProblem(NamedTuple):
         ub = (torch.full((n,), ub_default, dtype=F32, device=dev) if ub is None
               else _as_f32(ub, dev))
         mask = torch.ones(n, dtype=F32, device=dev) if mask is None else _as_f32(mask, dev)
-        return cls(K, E, c, d, mu, g, params, lb, ub, mask)
+        prob = cls(K, E, c, d, mu, g, params, lb, ub, mask)
+        if terms:
+            from .terms import with_terms   # terms imports this module
+            prob = with_terms(prob, terms)
+        return prob
 
     def restrict(self, allowed_idx) -> "AllocationProblem":
         """Only ``allowed_idx`` instance types may be used (others get
@@ -123,7 +125,8 @@ def problem_to(prob: AllocationProblem, device) -> AllocationProblem:
         K=mv(prob.K), E=mv(prob.E), c=mv(prob.c), d=mv(prob.d),
         mu=mv(prob.mu), g=mv(prob.g),
         params=PenaltyParams(*(mv(p) for p in prob.params)),
-        lb=mv(prob.lb), ub=mv(prob.ub), mask=mv(prob.mask))
+        lb=mv(prob.lb), ub=mv(prob.ub), mask=mv(prob.mask),
+        terms=tuple(t.to(device) for t in prob.terms))
 
 
 def unsqueeze_problem(prob: AllocationProblem) -> AllocationProblem:
@@ -132,7 +135,8 @@ def unsqueeze_problem(prob: AllocationProblem) -> AllocationProblem:
     return prob._replace(
         K=u(prob.K), E=u(prob.E), c=u(prob.c), d=u(prob.d), mu=u(prob.mu),
         g=u(prob.g), params=PenaltyParams(*(u(p) for p in prob.params)),
-        lb=u(prob.lb), ub=u(prob.ub), mask=u(prob.mask))
+        lb=u(prob.lb), ub=u(prob.ub), mask=u(prob.mask),
+        terms=tuple(t.map(u) for t in prob.terms))
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ import torch
 
 from . import objective as obj
 from .pgd import PGDConfig, pgd_minimize
-from .problem import AllocationProblem, lane, matvec, rmatvec
+from .problem import AllocationProblem, is_stacked, lane, matvec, rmatvec
 
 
 class SolverConfig(NamedTuple):
@@ -101,11 +101,19 @@ def _pgd(prob, x0, barrier_t, penalty_w, use_barrier, cfg: SolverConfig,
 def solve_relaxation(prob: AllocationProblem, x0: torch.Tensor,
                      cfg: SolverConfig = SolverConfig(),
                      use_kernel: bool = True) -> SolveResult:
-    """Solve the continuous relaxation of a single problem from x0: one
-    start (n,) or S starts (S, n), all at once."""
+    """Solve the continuous relaxation from x0, every start a lane: a
+    single problem takes one start (n,) or S starts (S, n); a stacked one
+    (B lanes, e.g. a parameter grid) one start per lane, (B, n), and its
+    eq. (1) evaluations go through the kernel's fleet form."""
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=prob.device)
     lead = x0.shape[:-1]
-    x = phase1_point(prob, x0.reshape(-1, prob.n))
+    if is_stacked(prob):
+        if tuple(x0.shape) != tuple(prob.c.shape):
+            raise ValueError(f"a stacked problem takes one start per lane, "
+                             f"{tuple(prob.c.shape)}; got {tuple(x0.shape)}")
+        x = phase1_point(prob, x0)
+    else:
+        x = phase1_point(prob, x0.reshape(-1, prob.n))
     lo, hi = obj.constraint_residuals(prob, x)
     strict = (lo.amin(-1) > 1e-3) & (hi.amin(-1) > 1e-3)           # (S,)
     f32 = dict(dtype=torch.float32, device=x.device)

@@ -1,22 +1,33 @@
 """repro_torch.fleet — the batched fleet solver and trace replay: stack
-tenant problems (``batching``), solve them cold (``solve_fleet``) and warm
-(``solve_fleet_step``), and replay demand traces (``replay_fleet``, its
+tenant problems (``batching``, globally padded or in power-of-two shape
+buckets), solve them cold (``solve_fleet``, ``solve_fleet_bucketed``) and
+warm (``solve_fleet_step``), replay demand traces (``replay_fleet``, its
 sequential and batched engines; ``replay_tenant`` for one tenant) against
-the Cluster-Autoscaler baseline on the same traces."""
-from .batching import (FleetBatch, bucket_dims, ceil_pow2, embed_solutions,
-                       stack_problems, tenant_problem)
+the Cluster-Autoscaler baseline on the same traces, and build priced
+scenario fleets (``scenarios``: SLO pricing, priority classes, the spot
+market)."""
+from .batching import (BucketedFleet, FleetBatch, bucket_dims,
+                       bucket_problems, ceil_pow2, embed_solutions,
+                       padding_stats, scatter_from_buckets, stack_problems,
+                       tenant_problem, union_term_kinds, unstack_solution)
 from .metrics import FleetReplayMetrics, TenantReplayMetrics
 from .replay import (FleetReplayResult, TenantReplay, TenantSpec,
                      replay_fleet, replay_tenant)
+from .scenarios import (PRIORITY_CLASSES, make_spot_fleet,
+                        with_priority_classes, with_slo_pricing)
 from .solver import (FleetSolveResult, FleetStepResult, make_fleet_starts,
-                     solve_fleet, solve_fleet_step)
+                     solve_fleet, solve_fleet_bucketed, solve_fleet_step)
 from .traces import TRACE_KINDS, make_trace
 
 __all__ = [
-    "FleetBatch", "bucket_dims", "ceil_pow2", "embed_solutions",
-    "stack_problems", "tenant_problem",
+    "FleetBatch", "stack_problems", "unstack_solution", "embed_solutions",
+    "tenant_problem", "union_term_kinds",
+    "BucketedFleet", "bucket_dims", "bucket_problems", "ceil_pow2",
+    "scatter_from_buckets", "padding_stats",
     "FleetReplayMetrics", "TenantReplayMetrics", "FleetReplayResult",
     "TenantReplay", "TenantSpec", "replay_fleet", "replay_tenant",
-    "FleetSolveResult", "FleetStepResult", "make_fleet_starts", "solve_fleet", "solve_fleet_step", "TRACE_KINDS",
-    "make_trace",
+    "FleetSolveResult", "FleetStepResult", "make_fleet_starts", "solve_fleet",
+    "solve_fleet_bucketed", "solve_fleet_step", "TRACE_KINDS", "make_trace",
+    "PRIORITY_CLASSES", "with_slo_pricing", "with_priority_classes",
+    "make_spot_fleet",
 ]

@@ -17,7 +17,10 @@ sequential engine's allocations, ragged horizons included.
 
 In the batched engine the controllers build each tick's per-tenant
 problem on the host; ``stack_problems`` moves each bucket's stack to the
-device in one copy per leaf, and the solve runs there.
+device in one copy per leaf, and the solve runs there. A tenant's
+scenario terms (``TenantSpec.terms``, e.g. from ``repro_torch.fleet.
+scenarios``) ride on its every tick's problem; a bucket stacks the union
+of its tenants' kinds, zero-priced where a tenant lacks one.
 
 The Cluster-Autoscaler baseline runs on the host (numpy, as in the
 reference and the paper) over the same traces. Each tenant's node pools

@@ -1,4 +1,5 @@
-"""solve_fleet and solve_fleet_step — port of ``repro.fleet.solver``.
+"""solve_fleet, solve_fleet_bucketed and solve_fleet_step — port of
+``repro.fleet.solver``.
 
 ``solve_fleet`` mirrors the reference's hand-batched hot loop: phase-1 ->
 barrier/penalty PGD with a Barzilai-Borwein step and an Armijo ladder ->
@@ -15,7 +16,15 @@ are plain jnp; here, on the card, they are launches of the kernel (its
 value-only form where no gradient is needed), so no plain eq. (1) runs
 on a CUDA tensor in ``hot_loop="kernel"``. ``hot_loop="ref"`` runs the
 plain PyTorch versions instead, on any device — the path a run is
-compared with. On a CPU tensor both run the plain versions.
+compared with. On a CPU tensor both run the plain versions. The kernel
+computes the four base terms only, as the Pallas kernel does; attached
+scenario terms (``repro_torch.core.terms``) are added to every value and
+gradient in plain PyTorch, each ladder candidate from its own K@x.
+
+``solve_fleet_bucketed`` groups a ragged fleet into power-of-two shape
+buckets (``batching.bucket_problems``), solves each bucket with
+``solve_fleet`` and scatters the results back into fleet order, padded to
+the fleet's true n_max.
 
 ``hot_loop="vmap"`` is the reference's "each lane runs the unmodified
 single-problem solver": a Python loop over the tenants, each solved alone
@@ -50,8 +59,8 @@ from ..core.problem import AllocationProblem, problem_to, unsqueeze_problem
 from ..core.rounding import round_and_polish
 from ..core.solver import SolverConfig, phase1_point
 from ..device import DeviceLike, resolve_device
-from ..kernels.alloc_objective import ops
-from .batching import FleetBatch, stack_problems, tenant_problem
+from .batching import (BucketedFleet, FleetBatch, bucket_problems,
+                       stack_problems, tenant_problem)
 
 HOT_LOOPS = ("kernel", "ref", "vmap")
 
@@ -109,14 +118,15 @@ def _pgd_fleet(prob, X0, barrier_t, penalty_w, strict, cfg: SolverConfig,
     L = cfg.n_backtracks
 
     def F_values(Xc):
-        """Composite values (B, T) for Xc (B, T, n); T is S or S*L."""
-        f = ops.fleet_value(prob, Xc, use_kernel=use_kernel)
+        """Composite values (B, T) for Xc (B, T, n); T is S or S*L: every
+        candidate's scenario terms from its own K@x."""
+        f = obj.kernel_value_and_grad(prob, Xc, False, use_kernel)[0]
         s = strict.repeat_interleave(Xc.shape[1] // S, dim=1)
         return f + obj.barrier_or_penalty(prob, Xc, barrier_t, penalty_w, s)
 
     def G_at(Xc):
         """Composite gradient at the (B, S, n) iterate."""
-        _, g = ops.fleet_value_and_grad(prob, Xc, use_kernel=use_kernel)
+        g = obj.kernel_value_and_grad(prob, Xc, True, use_kernel)[1]
         return g + obj.barrier_or_penalty_grad(prob, Xc, barrier_t,
                                                penalty_w, strict)
 
@@ -180,7 +190,7 @@ def _relax(prob, starts, cfg: SolverConfig, use_kernel: bool):
         iters = iters + it
     # feasibility restoration (no-op when already feasible)
     x = phase1_point(prob, x, steps=100, margin_frac=0.0)
-    fun = ops.fleet_value(prob, x, use_kernel=use_kernel)          # (B, S)
+    fun = obj.kernel_value_and_grad(prob, x, False, use_kernel)[0]  # (B, S)
     feas = obj.is_feasible(prob, x, 1e-3)
     return x, fun, feas, strict, iters
 
@@ -293,6 +303,58 @@ def make_fleet_starts(batch: FleetBatch, n_starts: int,
         out[b, :, : int(batch.n_true[b])] = make_starts(
             tenant_problem(batch, b), n_starts, seed)
     return out
+
+
+def solve_fleet_bucketed(
+    problems: Sequence[AllocationProblem],
+    n_starts: int = 4,
+    seed: int = 0,
+    cfg: Optional[SolverConfig] = None,
+    hot_loop: str = "kernel",
+    bucketed: Optional[BucketedFleet] = None,
+    device: DeviceLike = None,
+) -> FleetSolveResult:
+    """:func:`solve_fleet` with shape-bucketed stacking: one batched solve
+    per power-of-two bucket, results scattered back into the ORIGINAL
+    tenant order and padded to the fleet's true n_max, so the result reads
+    like an unbucketed ``solve_fleet``'s. Starts are drawn per tenant at
+    its true shape (:func:`make_fleet_starts`), so every tenant sees the
+    starts a global pad would give it. ``bucketed`` reuses a precomputed
+    layout."""
+    problems = list(problems)
+    dev = resolve_device(device)
+    if bucketed is None:
+        bucketed = bucket_problems(problems, device=dev)
+    n_max = max(int(pb.n) for pb in problems)
+    results = [solve_fleet(b, n_starts=n_starts, seed=seed, cfg=cfg,
+                           hot_loop=hot_loop, device=dev)
+               for b in bucketed.batches]
+    # row i of the bucket-ordered concatenation is tenant flat[i]
+    flat = np.concatenate(bucketed.tenant_idx)
+    order = torch.as_tensor(np.argsort(flat), device=dev)
+
+    def to_n_max(a: torch.Tensor) -> torch.Tensor:
+        """A bucket's solution columns aligned to the fleet's true n_max:
+        a power-of-two pad past it holds only pinned-zero padding."""
+        if a.shape[-1] >= n_max:
+            return a[..., :n_max]
+        return torch.nn.functional.pad(a, (0, n_max - a.shape[-1]))
+
+    def gather(field: str, is_solution: bool = False) -> torch.Tensor:
+        rows = [getattr(r, field) for r in results]
+        if is_solution:
+            rows = [to_n_max(a) for a in rows]
+        return torch.cat(rows)[order]
+
+    return FleetSolveResult(
+        x=gather("x", True), fun=gather("fun"),
+        x_int=gather("x_int", True), fun_int=gather("fun_int"),
+        feasible=gather("feasible"), used_barrier=gather("used_barrier"),
+        all_fun=gather("all_fun"),
+        iters=torch.stack([r.iters for r in results]).sum(),
+        x_int_all=gather("x_int_all", True),
+        fun_int_all=gather("fun_int_all"),
+        feas_int_all=gather("feas_int_all"))
 
 
 def solve_fleet_step(

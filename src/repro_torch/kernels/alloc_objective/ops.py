@@ -184,10 +184,11 @@ def fleet_value(prob: AllocationProblem, X: torch.Tensor,
                    prob.d, _fleet_scalars(prob), with_grad=False)[0]
 
 
-def batched_value_and_grad(prob: AllocationProblem, X: torch.Tensor):
+def batched_value_and_grad(prob: AllocationProblem, X: torch.Tensor,
+                           use_kernel: bool = True):
     """(f (S,), grad (S, n)) for ONE problem and S points X (S, n): the
     same kernel with B = 1."""
-    if not X.is_cuda:
+    if not (use_kernel and X.is_cuda):
         return ref.alloc_objective_ref(X, prob.K, prob.E, prob.c, prob.d,
                                        *_params(prob))
     f, g = _launch("alloc_objective", X[None], prob.K[None], prob.E[None],

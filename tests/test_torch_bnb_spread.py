@@ -4,9 +4,10 @@ port's kernel and plain runs to this spread where they part (its
 ``REF_S4_BNB``), so the spread is reproduced here with the JAX package.
 
 ``optimize(use_bnb=True, n_starts=6, seed=0)`` as the reference runs it:
-the multistart once, then ``branch_and_bound`` (24 nodes) from its best
-relaxed start on the problem with ``c`` or ``d`` scaled by 1 +- 2^-23,
-each answer eq. (1) at the committed counts on the unchanged problem."""
+the multistart once, then ``branch_and_bound`` (the smoke's
+``BNB_NODES`` nodes) from its best relaxed start on the problem with ``c``
+or ``d`` scaled by 1 +- 2^-23, each answer eq. (1) at the committed counts
+on the unchanged problem."""
 import sys
 from pathlib import Path
 
@@ -49,10 +50,10 @@ def s4():
     return prob, multistart_solve(prob, n_starts=6, seed=0)
 
 
-def _answer(prob, ms, scale):
+def _answer(prob, ms, scale, nodes):
     perturbed = prob._replace(**{k: getattr(prob, k) * s
                                  for k, s in scale.items()})
-    bnb = branch_and_bound(perturbed, np.asarray(ms.best.x), max_nodes=24)
+    bnb = branch_and_bound(perturbed, np.asarray(ms.best.x), max_nodes=nodes)
     x = np.asarray(ms.x_int) if float(ms.fun_int) < bnb.fun else bnb.x
     return float(jobj.objective(prob, jnp.asarray(x, jnp.float32)))
 
@@ -60,7 +61,7 @@ def _answer(prob, ms, scale):
 @pytest.mark.parametrize("name", list(PERTURBATIONS))
 def test_reference_answer_under_one_ulp_change(name, s4, chip_smoke):
     prob, ms = s4
-    got = _answer(prob, ms, PERTURBATIONS[name])
+    got = _answer(prob, ms, PERTURBATIONS[name], chip_smoke.BNB_NODES)
     np.testing.assert_allclose(got, chip_smoke.REF_S4_BNB[name], rtol=1e-6)
 
 

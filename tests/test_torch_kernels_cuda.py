@@ -354,3 +354,45 @@ def test_kkt_report_on_the_card_against_the_cpu(cuda):
         np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
                                    getattr(want, f).numpy(), rtol=1e-3,
                                    atol=1e-4, err_msg=f)
+
+
+def _with_all_terms(prob, seed):
+    """``prob`` with the three scenario terms attached at random prices."""
+    from repro_torch.core.terms import make_term, with_terms
+    rng = np.random.default_rng(seed)
+    return with_terms(prob, [
+        make_term("slo_penalty", price=2.0),
+        make_term("priority_eviction",
+                  price=rng.uniform(0.0, 0.5, prob.n).astype(np.float32)),
+        make_term("spot_risk",
+                  risk=rng.uniform(0.0, 0.2, prob.n).astype(np.float32))])
+
+
+@pytest.mark.parametrize("B,T", [(8, 1), (8, 12), (1, 72)])
+def test_terms_kernel_route_matches_plain_at_4096(cuda, B, T):
+    """eq. (1) with every scenario term attached at the spot fleet's width:
+    the kernel route (the kernel's base terms plus the terms in PyTorch)
+    against the plain route, single (B = 1, n = 3760) and stacked (padded
+    to n = 4096). The points run from deep shortage to full cover, so the
+    SLO hinge is live."""
+    probs = [_with_all_terms(_problem(s, 4, 3760, 2, cuda), s)
+             for s in range(B)]
+    gen = torch.Generator(device=cuda).manual_seed(B * T)
+    scale = torch.logspace(-3, 1.5, T, device=cuda)[:, None] / 3760
+    if B == 1:
+        prob = probs[0]
+        X = torch.rand((T, prob.n), generator=gen, device=cuda) * scale
+    else:
+        prob = stack_problems(probs, n_max=4096).problem
+        X = (torch.rand((B, T, 4096), generator=gen, device=cuda) * scale
+             * prob.mask[:, None, :])
+    ops.reset_launches()
+    fk, gk = obj.value_and_grad(prob, X)
+    assert sum(ops.LAUNCHES.values()) == 1
+    fp, gp = obj.value_and_grad(prob, X, use_kernel=False)
+    _close(fk, fp)
+    _close(gk, gp)
+    _close(obj.objective(prob, X), fp)
+    _close(obj.grad_objective(prob, X), gp)
+    bare = obj.objective(prob._replace(terms=()), X)
+    assert not torch.allclose(bare, fk)
