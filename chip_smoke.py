@@ -133,6 +133,32 @@ Phases, one JSON object per line:
              feasibility. slice_shapes — the kernel at these two phases'
              shapes (n = 4096, the Pareto grid's B = 9, the four
              buckets) against its plain version, timed with its bound.
+   mpc     — the receding-horizon controller (``repro_torch.horizon``) on
+             the scenario fleet before pricing (8 tenants, diurnal and
+             flash_crowd) over the full catalog (n = 1880 in the bucket's
+             2048), the first 3 ticks (1 cold, 2 warm) of its 6, batched,
+             CA off: (a)
+             ``replay_fleet(controller="mpc", horizon=1)`` with the kernel
+             commits the myopic batched kernel replay's counts for every
+             tenant and tick; (b) ``horizon=8``, ``forecaster=
+             "last_value"``, the adaptive engine, with the kernel
+             (``run_oracle_baseline=True``) and with hot_loop="ref",
+             launch counts zeroed just before each run and read just
+             after: cost, churn, SLO ticks, the kernel run's regret
+             against its oracle twin, cold and warm tick
+             seconds, PGD iterations per warm tick, launches by entry and
+             shape (the window's B x H = 64 stack at T = 1 and 12); held
+             as the scenario replays are, one-ulp twins included; (c) one
+             ``solve_horizon_fleet_step`` with the ADMM engine and
+             ``capture_trace=True`` on (b)'s tick-1 windows, kernel and
+             plain: the worst lane's residual histories, the committed
+             counts held at the replay's tolerances; (d) torch.profiler
+             over one adaptive warm step on those windows, 60 iterations
+             (device busy share, launches). mpc_shapes — the
+             kernel at the window's B x H = 64 and the ADMM planned
+             prox's B x (H - 1) = 56 stacks (n = 2048; T = 1 value and
+             gradient, T = 12 value) against its plain version, timed
+             with its bound.
    serve_alloc — the online allocation service (``repro_torch.serve``):
              the demo session of ``python -m repro_torch.serve`` (full
              catalog, 8 lanes, 24 ticks, flash-crowd demand, a departure
@@ -349,6 +375,14 @@ L_RUNGS = 12                  # SolverConfig().n_backtracks
 # priority fleet's tenant 2 does; tests/test_torch_scenario_spread.py
 # shows the reference's own answer there moving by 22% under one ulp)
 ULP_STEPS = (1, -1)
+# the receding-horizon phase: the scenario fleet (unpriced) and the
+# reference's default window, 3 ticks (1 cold, 2 warm) of its traces' 6:
+# a warm tick takes 4-9 s and the phase replays the fleet three times
+# (kernel with its oracle twin, plain), which more ticks would lift past
+# the smoke's margin under 1200 s on a slower host;
+# MPC_PROFILE_STEPS bounds the profiled warm step (torch.profiler's
+# event processing grows with its launches)
+MPC_HORIZON, MPC_TICKS, MPC_PROFILE_STEPS = 8, 3, 60
 # the bucketed fleet: tenants spread over instances[::k] of the catalog
 BUCKET_TENANTS, BUCKET_STRIDES = 32, (1, 2, 8, 40)
 # base demands of examples/fleet_replay.py's four tenants, by trace kind
@@ -1883,6 +1917,235 @@ def bucketing_checks(dev, ops, seed: int) -> tuple:
     return rec, probes
 
 
+def mpc_checks(dev, ops) -> tuple:
+    """The receding-horizon controller on the card, on the scenario
+    phases' fleet before pricing (``scenario_base_specs``: 8 tenants
+    alternating diurnal and flash_crowd, no terms; its traces' first
+    MPC_TICKS ticks) over the full catalog (n = 1880 in the bucket's
+    2048), batched, CA off:
+    (a) ``controller="mpc", horizon=1`` with the kernel against the
+    myopic batched kernel replay; (b) ``horizon=MPC_HORIZON``, the
+    last-value forecaster, the adaptive engine, with the kernel (and
+    ``run_oracle_baseline``: the regret against the oracle twin) and with
+    ``hot_loop="ref"`` (no twin: it feeds no gate), launch counts zeroed
+    just before each run and read just after, tick times from the replay's
+    telemetry spans; (c) one ``solve_horizon_fleet_step`` with the ADMM
+    engine and ``capture_trace=True`` on (b)'s tick-1 windows (the
+    controllers stepped through tick 0 with (b)'s kernel counts), kernel
+    and plain. Raises unless (a) commits the myopic replay's counts for
+    every tenant and tick; (b) the kernel replay lies within TENANT_RTOL
+    per tenant and FLEET_RTOL over the fleet of the plain one with equal
+    satisfaction — or each tenant within TENANT_RTOL of the plain replay
+    or of one of its twins under one-ulp demand changes (ULP_STEPS), and
+    the fleet within FLEET_RTOL of those — and the kernel run launched the
+    fleet entries at B = 8 x MPC_HORIZON (the plain run nothing); (c) the
+    committed counts' eq. (1) (plain, at the tick-0 problems) of kernel
+    and plain lie within TENANT_RTOL per lane and FLEET_RTOL summed, with
+    equal feasibility, and the kernel run launched the planned prox's
+    B·(H-1) stack; (d) profiles one adaptive warm step on the same
+    windows, MPC_PROFILE_STEPS iterations. Returns (record, probes):
+    probes are (label, stacked problem, entry, T) of the window stack and
+    the planned prox's stack, whose shapes the kernels line times."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import repro_torch.fleet.replay as replay_mod
+    from repro_torch.core import objective as obj
+    from repro_torch.core.catalog import make_cloud_catalog
+    from repro_torch.fleet import (TenantSpec, bucket_dims, make_trace,
+                                   replay_fleet)
+    from repro_torch.horizon import (DEFAULT_COUPLING_EPS,
+                                     DEFAULT_COUPLING_W, HorizonSolverConfig,
+                                     admm_residual_history,
+                                     solve_horizon_fleet_step, stack_windows)
+    from repro_torch.horizon.problem import flatten_lanes
+    from repro_torch.horizon.solver import _window
+    from repro_torch.obs.telemetry import telemetry
+    catalog = make_cloud_catalog()
+    specs = [replace(sp, trace=np.asarray(sp.trace)[:MPC_TICKS])
+             for sp in scenario_base_specs(TenantSpec, make_trace)]
+    B, H = len(specs), MPC_HORIZON
+    dims = bucket_dims(catalog.n, len(catalog.matrices()[0]),
+                       len(catalog.providers))
+    counts = lambda out: [[s.counts for s in r.steps] for r in out.tenants]
+    mpc_kw = dict(replay_mode="batched", controller="mpc", horizon=H,
+                  forecaster="last_value",
+                  solver_config=HorizonSolverConfig(),
+                  run_ca_baseline=False, device=dev)
+
+    def run(hot_loop, fleet, **kw):
+        """One replay, launches counted, its telemetry ticks timed."""
+        ops.reset_launches()
+        with ShapeCounts(ops, with_n=True) as shapes, telemetry() as rec:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = replay_fleet(catalog, fleet, hot_loop=hot_loop, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+        ticks = [e.dur_us / 1e6 for e in rec.spans("replay/tick")]
+        flat = np.stack([c for r in counts(out) for c in r])
+        if not (np.isfinite(flat).all()
+                and np.array_equal(flat, np.round(flat))):
+            raise AssertionError("mpc: non-integral counts")
+        return out, {"wall_s": wall, "tick_s": ticks,
+                     "launches": dict(ops.LAUNCHES),
+                     "launches_by_shape": shapes.by_shape()}
+
+    # (a) H = 1 against the myopic batched kernel replay
+    myo, myo_rec = run("kernel", specs, replay_mode="batched",
+                       run_ca_baseline=False, device=dev)
+    h1, h1_rec = run("kernel", specs, **{**mpc_kw, "horizon": 1})
+    h1_equal = all(np.array_equal(x, y) for a, b in zip(counts(myo),
+                                                       counts(h1))
+                   for x, y in zip(a, b))
+    part_a = {"myopic": {k: myo_rec[k] for k in ("wall_s", "launches")},
+              "mpc_h1": {k: h1_rec[k] for k in ("wall_s", "launches")},
+              "counts_equal": h1_equal}
+    if not h1_equal:
+        raise AssertionError("mpc: H = 1 commits other counts than the "
+                             "myopic replay")
+
+    # (b) H = MPC_HORIZON, kernel (with the oracle twin) then plain
+    runs = {}
+    for who, hot_loop in (("kernel", "kernel"), ("plain", "ref")):
+        out, rec = run(hot_loop, specs, run_oracle_baseline=who == "kernel",
+                       **mpc_kw)
+        m = out.metrics
+        ticks = rec["tick_s"][:MPC_TICKS]     # the replay's; the twin's next
+        iters = [sum(r.steps[t].solver_iters for r in out.tenants)
+                 for t in range(1, MPC_TICKS)]
+        rec.update(cost_integral=m.total_cost_integral,
+                   total_churn=m.total_churn,
+                   slo_violation_ticks=m.total_slo_violation_ticks,
+                   oracle_cost_integral=m.oracle_cost_integral,
+                   regret_vs_oracle=m.regret_vs_oracle,
+                   cold_tick_s=ticks[0], warm_tick_s=ticks[1:],
+                   oracle_tick_s=rec["tick_s"][MPC_TICKS:],
+                   pgd_iters_per_warm_tick=iters,
+                   pgd_iters_per_lane_per_warm_tick=[i / B for i in iters],
+                   summary=m.summary().splitlines())
+        del rec["tick_s"]
+        runs[who] = (out, rec)
+    (k_out, k_rec), (p_out, p_rec) = runs["kernel"], runs["plain"]
+    part_b = {"horizon": H, "kernel": k_rec, "plain": p_rec,
+              **_fleet_agreement(k_out, p_out)}
+    if not _agrees(part_b):
+        plains = [p_out]
+        for k in ULP_STEPS:
+            f = 1.0 + k * 2.0 ** -23
+            twin = [replace(sp, trace=np.asarray(sp.trace) * f)
+                    for sp in specs]
+            plains.append(run("ref", twin, **mpc_kw)[0])
+        spread = _within_spread(k_out, plains)
+        part_b["one_ulp_plain_spread"] = spread
+        if not spread["within"]:
+            raise AssertionError(f"mpc: the kernel replay disagrees with "
+                                 f"the plain one and its one-ulp twins: "
+                                 f"{spread}")
+    n_pad = dims[0]
+    for key in (f"alloc_objective_fleet@B={B * H},T=1,n={n_pad}",
+                f"alloc_objective_fleet_value@B={B * H},T={L_RUNGS},"
+                f"n={n_pad}"):
+        if not k_rec["launches_by_shape"].get(key):
+            raise AssertionError(f"mpc: {key} never launched")
+    if any(p_rec["launches"].values()):
+        raise AssertionError(f"mpc: the plain replay launched "
+                             f"{p_rec['launches']}")
+
+    # (c) ADMM on (b)'s tick-1 windows
+    ctls = [replay_mod._make_mpc_controller(
+        catalog, sp, horizon=H, forecaster="last_value",
+        forecaster_kwargs=None, coupling_w=DEFAULT_COUPLING_W,
+        coupling_eps=DEFAULT_COUPLING_EPS,
+        solver_config=HorizonSolverConfig())
+        for sp in specs]
+    for ctl, sp, rep in zip(ctls, specs, k_out.tenants):
+        ctl.window_demands(np.asarray(sp.trace[0]))
+        ctl.apply_counts(sp.trace[0], rep.steps[0].counts, replanned=True)
+        ctl.plan = np.tile(rep.steps[0].counts, (H, 1))
+    wins = [ctl.window_problems(ctl.window_demands(np.asarray(sp.trace[1])))
+            for ctl, sp in zip(ctls, specs)]
+    hp = stack_windows(wins, n_max=dims[0], m_max=dims[1], p_max=dims[2],
+                       device=dev)
+    X_cur = np.zeros((B, dims[0]), np.float32)
+    X_init = np.zeros((B, H, dims[0]), np.float32)
+    for i, ctl in enumerate(ctls):
+        X_cur[i, :catalog.n] = ctl.x_current
+        X_init[i, :, :catalog.n] = ctl.shifted_plan()
+    delta = np.asarray([sp.delta_max for sp in specs], np.float32)
+    W = _window(hp.problem, hp.coupling_w, hp.coupling_eps, B, H)
+    admm = {}
+    for who, hot_loop in (("kernel", "kernel"), ("plain", "ref")):
+        ops.reset_launches()
+        with ShapeCounts(ops, with_n=True) as shapes:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            res = solve_horizon_fleet_step(
+                hp, X_cur, delta, x_init=X_init,
+                cfg=HorizonSolverConfig(solver="admm"), capture_trace=True,
+                hot_loop=hot_loop, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+        primal = res.diag.primal_res.cpu().numpy()
+        worst = int(np.argmax(primal))
+        lanes = [admm_residual_history(type(res.trace)(
+            *(f[b] for f in res.trace))) for b in range(B)]
+        hist = lanes[worst]
+        admm[who] = {
+            "seconds": wall, "launches": dict(ops.LAUNCHES),
+            "launches_by_shape": shapes.by_shape(),
+            "outer_iters": res.diag.admm_iters.cpu().tolist(),
+            "inner_iters": res.iters.cpu().tolist(),
+            "final_primal": primal.tolist(),
+            "final_dual": res.diag.dual_res.cpu().tolist(),
+            "worst_lane": worst,
+            "first_primal": [float(h[0][0]) for h in lanes],
+            "worst_primal_history": hist[0].tolist(),
+            "worst_dual_history": hist[1].tolist(),
+            "fun_int": obj.objective(W.P0, res.x_int,
+                                     use_kernel=False).cpu().numpy(),
+            "feasible": res.feasible.cpu().tolist()}
+    fk, fp = admm["kernel"]["fun_int"], admm["plain"]["fun_int"]
+    rel = np.abs(fk - fp) / np.abs(fp)
+    for who in admm:
+        admm[who]["fun_int"] = admm[who]["fun_int"].tolist()
+    part_c = {"max_lane_rel_diff": float(rel.max()),
+              "sum_rel_diff": float(abs(fk.sum() - fp.sum()) / fp.sum()),
+              "feasible_equal": (admm["kernel"]["feasible"]
+                                 == admm["plain"]["feasible"]), **admm}
+    if not (part_c["max_lane_rel_diff"] <= TENANT_RTOL
+            and part_c["sum_rel_diff"] <= FLEET_RTOL
+            and part_c["feasible_equal"]):
+        raise AssertionError(f"mpc: the ADMM kernel step disagrees with "
+                             f"plain: {part_c['max_lane_rel_diff']}, "
+                             f"{part_c['sum_rel_diff']}")
+    key = f"alloc_objective_fleet@B={B * (H - 1)},T=1,n={n_pad}"
+    if not admm["kernel"]["launches_by_shape"].get(key):
+        raise AssertionError(f"mpc: {key} never launched")
+    # (d) one adaptive warm step on the same windows under torch.profiler,
+    # MPC_PROFILE_STEPS iterations: the MPC warm tick's device busy share
+    # and launches an iteration
+    step = lambda: solve_horizon_fleet_step(
+        hp, X_cur, delta, x_init=X_init, device=dev,
+        cfg=HorizonSolverConfig(steps=MPC_PROFILE_STEPS))
+    warm = step()
+    torch.cuda.synchronize()
+    prof = profile_once(step, top_n=8, match="alloc_objective")
+    part_d = {"what": "one solve_horizon_fleet_step, adaptive, tick 1",
+              "iters": warm.iters.cpu().tolist(), **prof}
+    probes = [("window", flatten_lanes(hp.problem), "alloc_objective_fleet",
+               1),
+              ("window", flatten_lanes(hp.problem),
+               "alloc_objective_fleet_value", L_RUNGS),
+              ("admm_planned", W.rest, "alloc_objective_fleet", 1),
+              ("admm_planned", W.rest, "alloc_objective_fleet_value",
+               L_RUNGS)]
+    return ({"tenants": B, "ticks": MPC_TICKS, "n": catalog.n,
+             "bucket": list(dims), "h1_vs_myopic": part_a,
+             "replay": part_b, "admm": part_c, "profile": part_d}, probes)
+
+
 def serve_alloc_checks(dev, ops, seed: int) -> dict:
     """The online allocation service on the card (``repro_torch.serve``):
     the demo session of ``python -m repro_torch.serve`` (full catalog,
@@ -2184,6 +2447,7 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=4)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "
@@ -2512,6 +2776,7 @@ def main() -> int:
                              "the float64 replay")
 
     # ---- profile one warm tick -------------------------------------------
+    t0 = time.perf_counter()
     X_cur = torch.as_tensor(np.stack(
         [np.pad(r.steps[0].counts, (0, n_pad - catalog.n))
          for r in k_out.tenants]), dtype=torch.float32, device=dev)
@@ -2525,7 +2790,8 @@ def main() -> int:
     res = []
     prof = profile_once(lambda: res.append(step(batch1, X_cur, delta)),
                         top_n=8, match="alloc_objective")
-    emit({"phase": "profile", "what": "one warm solve_fleet_step",
+    emit({"phase": "profile", "seconds": time.perf_counter() - t0,
+          "what": "one warm solve_fleet_step",
           "iters_max": int(res[0].iters.max()), **prof})
 
     # ---- scenarios: the paper's one-shot optimizer against the CA --------
@@ -2573,6 +2839,24 @@ def main() -> int:
     emit({"phase": "slice_shapes", "seconds": time.perf_counter() - t0,
           "checks": [{"label": lb, "key": k, **r, "launches": c}
                      for lb, k, r, c in new_shapes]})
+
+    # ---- mpc: the receding-horizon controller ---------------------------
+    t0 = time.perf_counter()
+    mpc, mpc_probes = mpc_checks(dev, ops)
+    emit({"phase": "mpc", "seconds": time.perf_counter() - t0, **mpc})
+    # the kernel at the window's B·H stack and the ADMM planned prox's
+    # B·(H-1) stack, timed; launches from the run that gave the shape
+    t0 = time.perf_counter()
+    for label, prob, name, T in mpc_probes:
+        B, n = prob.c.shape
+        key = f"{name}@B={B},T={T},n={n}"
+        shapes_seen = (mpc["replay"]["kernel"] if label == "window"
+                       else mpc["admm"]["kernel"])["launches_by_shape"]
+        rec = fleet_case(name, T, prob, timed=True)
+        new_shapes.append((label, key, rec, shapes_seen.get(key, 0)))
+    emit({"phase": "mpc_shapes", "seconds": time.perf_counter() - t0,
+          "checks": [{"label": lb, "key": k, **r, "launches": c}
+                     for lb, k, r, c in new_shapes[-len(mpc_probes):]]})
 
     # ---- serve_alloc: the online allocation service ----------------------
     t0 = time.perf_counter()
@@ -2670,8 +2954,9 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None})
-    # this slice's shapes: the spot fleet (n = 4096), the Pareto grid and
-    # the buckets, with their launches in the run that gave them
+    # the spot fleet (n = 4096), the Pareto grid, the buckets, the MPC
+    # window and the ADMM planned prox, with their launches in the run
+    # that gave them
     for label, key, rec, launches in new_shapes:
         name = key.split("@")[0]
         if launches == 0:
@@ -2707,6 +2992,7 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,6 +10,10 @@ attached scenario terms as ``(kind, {param: array})`` pairs (either
 package's ``PricedTerm`` turns into such a pair by :func:`terms_arrays`;
 the reference's ``make_term(kind, **params)`` takes it back).
 
+A horizon window (either package's ``HorizonProblem``, leaves (H, ...) or
+(B, H, ...)) crosses as its problem's arrays plus the two coupling scalars
+(:func:`horizon_arrays`, :func:`horizon_from_arrays`).
+
 A model's parameters cross the same way: ``model_params_from_reference``
 takes the reference's parameter values as numpy arrays and returns the
 port's per-layer parameters.
@@ -84,6 +88,25 @@ def fleet_batch_from_arrays(arrays: Mapping, n_true, m_true, p_true,
         m_true=np.asarray(m_true, np.int64),
         p_true=np.asarray(p_true, np.int64),
         active=None if active is None else np.asarray(active, bool))
+
+
+def horizon_arrays(hp) -> dict:
+    """The numpy leaves of either package's ``HorizonProblem``: its
+    problem's :func:`problem_arrays` and the coupling scalars."""
+    return {"problem": problem_arrays(hp.problem),
+            "coupling_w": _host(hp.coupling_w),
+            "coupling_eps": _host(hp.coupling_eps)}
+
+
+def horizon_from_arrays(arrays: Mapping, device: DeviceLike = None):
+    """The port's ``HorizonProblem`` from :func:`horizon_arrays`' output,
+    float32 on ``device``."""
+    from .horizon.problem import HorizonProblem
+    dev = resolve_device(device)
+    put = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    return HorizonProblem(problem_from_arrays(arrays["problem"], dev),
+                          coupling_w=put(arrays["coupling_w"]),
+                          coupling_eps=put(arrays["coupling_eps"]))
 
 
 def model_params_from_reference(values: Mapping, cfg: ModelConfig,

@@ -200,25 +200,28 @@ def tenant_problem(batch: FleetBatch, b: int) -> AllocationProblem:
     """Tenant ``b``'s ORIGINAL (unpadded) problem, sliced from the batch
     (contiguous copies, so it can go straight to the kernel). Its terms
     carry the batch's union signature: a kind the tenant lacked comes back
-    at zero params, an exact no-op."""
+    at zero params, an exact no-op. Leaves with more leading axes than the
+    tenant's, such as a fleet of horizon windows (B, H, ...), keep them:
+    tenant b's window comes back (H, ...)."""
     n, m, p = int(batch.n_true[b]), int(batch.m_true[b]), int(batch.p_true[b])
     pb = batch.problem
     cut = lambda a: a.contiguous()
     extent = {"": None, "n": n, "m": m}
 
     def param(a, axis):
-        return a[b] if axis == "" else cut(a[b, :extent[axis]])
+        return cut(a[b]) if axis == "" else cut(a[b, ..., :extent[axis]])
 
     terms = tuple(
         PricedTerm(t.kind, {k: param(t.params[k], ax)
                             for k, ax in TERM_DEFS[t.kind].param_axes.items()})
         for t in pb.terms)
     return AllocationProblem(
-        K=cut(pb.K[b, :m, :n]), E=cut(pb.E[b, :p, :n]), c=cut(pb.c[b, :n]),
-        d=cut(pb.d[b, :m]), mu=cut(pb.mu[b, :m]), g=cut(pb.g[b, :m]),
-        params=PenaltyParams(*(a[b] for a in pb.params)),
-        lb=cut(pb.lb[b, :n]), ub=cut(pb.ub[b, :n]), mask=cut(pb.mask[b, :n]),
-        terms=terms)
+        K=cut(pb.K[b, ..., :m, :n]), E=cut(pb.E[b, ..., :p, :n]),
+        c=cut(pb.c[b, ..., :n]), d=cut(pb.d[b, ..., :m]),
+        mu=cut(pb.mu[b, ..., :m]), g=cut(pb.g[b, ..., :m]),
+        params=PenaltyParams(*(cut(a[b]) for a in pb.params)),
+        lb=cut(pb.lb[b, ..., :n]), ub=cut(pb.ub[b, ..., :n]),
+        mask=cut(pb.mask[b, ..., :n]), terms=terms)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Fleet/time metric aggregation for trace replays — port of
-``repro.fleet.metrics`` (numpy only). The oracle-MPC comparison is not
-ported yet, so there is no ``oracle`` field.
+``repro.fleet.metrics`` (numpy only).
 
 Extends the paper's snapshot metrics (repro_torch.core.metrics) over TIME
 (cost integral, SLO-violation ticks, churn) and over the FLEET (tenant
@@ -89,16 +88,19 @@ class FleetReplayMetrics:
     (``replay_fleet(run_ca_baseline=True)``, one entry per tenant).
 
     ``replay_mode`` and ``controller`` record which engine and control loop
-    produced the histories (provenance only). ``health`` is the rolled-up
+    produced the histories (provenance only). ``oracle`` optionally holds
+    the same fleet replayed by the MPC controller under the ground-truth
+    oracle forecaster (``replay_fleet(run_oracle_baseline=True)``): the
+    regret reference. ``health`` is the rolled-up
     ``repro_torch.obs.HealthReport`` of a replay run with a
     ``HealthMonitor`` (``replay_fleet(health=...)``), surfaced by
-    ``summary()``; compare=False, since it holds wall-clock observations.
-    The reference's oracle-MPC ``oracle`` comparison is not ported yet."""
+    ``summary()``; compare=False, since it holds wall-clock observations."""
 
     tenants: List[TenantReplayMetrics]
     baseline: Optional[List[TenantReplayMetrics]] = None
     replay_mode: str = "batched"
     controller: str = "myopic"
+    oracle: Optional[List[TenantReplayMetrics]] = None
     health: Optional[HealthReport] = field(default=None, compare=False)
 
     @property
@@ -150,6 +152,22 @@ class FleetReplayMetrics:
         return sum(t.cost_integral for t in self.baseline)
 
     @property
+    def oracle_cost_integral(self) -> Optional[float]:
+        if self.oracle is None:
+            return None
+        return sum(t.cost_integral for t in self.oracle)
+
+    @property
+    def regret_vs_oracle(self) -> Optional[float]:
+        """Cost-integral regret against the oracle-forecast replay of the
+        same fleet and controller: cost(this run) - cost(oracle run), the
+        price of forecast error."""
+        base = self.oracle_cost_integral
+        if base is None:
+            return None
+        return self.total_cost_integral - base
+
+    @property
     def cost_savings_vs_baseline_pct(self) -> Optional[float]:
         base = self.baseline_cost_integral
         if base is None or base <= 0:
@@ -186,6 +204,11 @@ class FleetReplayMetrics:
                          f"${self.baseline_cost_integral:,.2f}")
             lines.append(f"  savings vs CA      : "
                          f"{self.cost_savings_vs_baseline_pct:+.1f}%")
+        if self.oracle is not None:
+            lines.append(f"  oracle-MPC cost    : "
+                         f"${self.oracle_cost_integral:,.2f}")
+            lines.append(f"  regret vs oracle   : "
+                         f"${self.regret_vs_oracle:+,.2f}")
         if self.health is not None:
             lines.extend(self.health.summary_lines())
         return "\n".join(lines)

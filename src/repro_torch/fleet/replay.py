@@ -1,5 +1,5 @@
 """Trace-driven fleet replay — port of ``repro.fleet.replay``'s two
-engines with the myopic controller.
+engines, with the myopic and the receding-horizon (MPC) controllers.
 
 ``replay_mode="sequential"`` (the reference's default) steps each tenant's
 ``InfrastructureOptimizationController`` through its trace, one solve per
@@ -39,8 +39,18 @@ solver traces (``capture_solver_trace=True``, returned as
 ``FleetReplayResult.solver_traces``), an anytime deadline on every warm
 solve (``anytime=AnytimeConfig(...)``), and ``replay/*`` telemetry spans
 and gauges (``repro_torch.obs.telemetry``). None of them changes an
-allocation. Not ported yet: the MPC controller (``controller="mpc"``
-raises ``NotImplementedError``).
+allocation.
+
+Both engines also drive the receding-horizon controller
+(``controller="mpc"``, ``repro_torch.horizon``): each tick forecasts
+``horizon`` ticks, solves one time-expanded program, and commits tick 0.
+The batched engine's tick loop is the same for both controllers; with
+MPC its warm tick issues one ``solve_horizon_fleet_step`` per shape
+bucket on the bucket's windows (the B·H tick problems stacked
+lane-major, at the bucket's union term signature); ``hot_loop`` acts on
+it as on the myopic engines.
+``run_oracle_baseline`` replays the same MPC fleet under the oracle
+forecaster for ``FleetReplayMetrics.regret_vs_oracle``.
 """
 from __future__ import annotations
 
@@ -65,7 +75,8 @@ from ..device import DeviceLike, resolve_device
 from ..obs import metrics as obs_metrics
 from ..obs.health import HealthMonitor
 from ..obs.telemetry import gauge, span
-from .batching import bucket_dims, embed_solutions, stack_problems
+from .batching import (bucket_dims, embed_solutions, stack_problems,
+                       union_term_kinds)
 from .metrics import FleetReplayMetrics, TenantReplayMetrics, tenant_metrics
 from .solver import (_use_kernel, make_fleet_starts, solve_fleet,
                      solve_fleet_step)
@@ -137,7 +148,8 @@ class TenantReplay:
 class FleetReplayResult:
     """Per-tenant histories + fleet rollup. ``solver_traces`` is None
     unless the replay ran with ``capture_solver_trace=True``: then one list
-    per tenant of its per-WARM-tick ``PGDTrace`` rows (numpy leaves; cold
+    per tenant of its per-WARM-tick ``PGDTrace`` rows (``ADMMTrace`` rows
+    for an MPC replay with ``solver="admm"`` at H > 1; numpy leaves; cold
     ticks run the multistart solver, which is not traced)."""
 
     tenants: List[TenantReplay]
@@ -252,6 +264,31 @@ def _make_controller(catalog: Catalog, spec: TenantSpec,
         device=device, use_kernel=use_kernel)
 
 
+def _make_mpc_controller(catalog: Catalog, spec: TenantSpec, *, horizon: int,
+                         forecaster: str, forecaster_kwargs: Optional[dict],
+                         coupling_w: float, coupling_eps: float,
+                         solver_config=None, cold_start: str = "myopic",
+                         device: torch.device = HOST,
+                         use_kernel: bool = True):
+    """One tenant's receding-horizon controller (the MPC counterpart of
+    :func:`_make_controller`); the forecaster gets the tenant's own trace
+    so ``forecaster="oracle"`` reads that tenant's future. Imported here:
+    ``repro_torch.horizon`` stacks its windows with ``fleet.batching``."""
+    from ..horizon import ModelPredictiveController, make_forecaster
+    fc = make_forecaster(forecaster,
+                         trace=np.asarray(spec.trace, np.float64),
+                         **(forecaster_kwargs or {}))
+    return ModelPredictiveController(
+        catalog=spec.catalog or catalog, delta_max=spec.delta_max,
+        params=spec.params, n_starts=spec.n_starts,
+        allowed_idx=spec.allowed_idx, terms=spec.terms,
+        spot_idx=spec.spot_idx, spot_availability=spec.spot_availability,
+        device=device, use_kernel=use_kernel,
+        horizon=horizon, forecaster=fc,
+        coupling_w=coupling_w, coupling_eps=coupling_eps,
+        solver_config=solver_config, cold_start=cold_start)
+
+
 def _assemble_replay(spec: TenantSpec, steps: List[ControllerStep],
                      ca: Optional[Tuple]) -> TenantReplay:
     """Roll one tenant's step history (plus its CA baseline's
@@ -330,7 +367,7 @@ class _TickObserver:
             self.health.observe_step(**kw)
 
 
-def _replay_sequential(ctls, tenants: Sequence[TenantSpec],
+def _replay_sequential(ctls, tenants: Sequence[TenantSpec], controller: str,
                        capture_solver_trace: bool,
                        health: Optional[HealthMonitor] = None,
                        anytime: Optional[AnytimeConfig] = None):
@@ -340,7 +377,7 @@ def _replay_sequential(ctls, tenants: Sequence[TenantSpec],
     (tenant, tick) is timed and observed: the tick's problem is built up
     front (``make_problem`` is pure and history has not advanced yet, so it
     is the problem ``step`` solves) and ``last_x_rel`` feeds the KKT
-    gauge."""
+    gauge. ``controller`` ("myopic" or "mpc") names the loop in spans."""
     histories, solver_traces = [], []
     obs = _TickObserver(health)
     for ctl, spec in zip(ctls, tenants):
@@ -351,18 +388,20 @@ def _replay_sequential(ctls, tenants: Sequence[TenantSpec],
             prob = ctl.make_problem(demand) if health is not None else None
             n_tr = len(ctl.solver_traces)
             obs.tick_start()
-            tick_key = ("seq_tick", "myopic", ctl.catalog.n, t > 0,
+            tick_key = ("seq_tick", controller, ctl.catalog.n, t > 0,
                         capture_solver_trace,
                         anytime is not None and anytime.enabled)
             with span("replay/tick", cat="replay", tick=t,
-                      engine="sequential", controller="myopic",
+                      engine="sequential", controller=controller,
                       tenant=spec.name, compile_key=tick_key):
                 step = ctl.step(demand)
                 steps.append(step)
             obs.tick_end(t, step.solver_iters, compile_key=tick_key)
             gauge("replay/solver_iters", step.solver_iters)
-            obs.step(tenant=spec.name, tick=t, step=step,
-                     solver="multistart" if step.replanned else "adaptive",
+            solver = ("multistart" if step.replanned
+                      else ctl.solver_config.solver if controller == "mpc"
+                      else "adaptive")
+            obs.step(tenant=spec.name, tick=t, step=step, solver=solver,
                      prob=prob, x_rel=ctl.last_x_rel,
                      trace=(ctl.solver_traces[-1]
                             if len(ctl.solver_traces) > n_tr else None),
@@ -385,57 +424,222 @@ def _replay_batch_groups(ctls: Sequence[InfrastructureOptimizationController],
     return groups
 
 
-def _replay_fleet_batched(catalog: Catalog, tenants: Sequence[TenantSpec], *,
-                          warm_start: str, solver_steps: int, hot_loop: str,
-                          device: torch.device,
+class _MyopicLanes:
+    """The myopic controller's part of :func:`_replay_fleet_batched`: each
+    tick's problem, the warm tick's stack and solve (``solve_fleet_step``
+    from the previous counts, or from the previous relaxed solution with
+    ``warm_start="relaxed"``), and what a lane keeps after its commit."""
+
+    controller = "myopic"
+
+    def __init__(self, catalog: Catalog, tenants: Sequence[TenantSpec],
+                 warm_start: str, solver_steps: int):
+        self.ctls = [_make_controller(catalog, spec) for spec in tenants]
+        self.relaxed = warm_start == "relaxed"
+        self.solver_steps = solver_steps
+        # previous tick's RELAXED solution per tenant (warm_start="relaxed")
+        self.x_rel_prev: List[Optional[np.ndarray]] = [None] * len(tenants)
+
+    def problem(self, b: int, demand: np.ndarray):
+        """Tenant ``b``'s problem of this tick."""
+        return self.ctls[b].make_problem(demand)
+
+    def cold_counts(self, idx, res, X_int, n_true) -> List[np.ndarray]:
+        """Each lane's cold commit: its best rounded start."""
+        return [X_int[i, :n] for i, n in enumerate(n_true)]
+
+    def warm(self, idx, key, probs, active, delta, need_rel, solve_kw):
+        """Stack the bucket's tick problems and solve its warm tick:
+        ``(res, X_rel)``, X_rel the relaxed solution on the host where a
+        warm start or ``need_rel`` uses it (else None)."""
+        n_pad, m_pad, p_pad, _ = key
+        with span("replay/stack", cat="replay", bucket=str(key)):
+            batch = stack_problems([probs[b] for b in idx], n_max=n_pad,
+                                   m_max=m_pad, p_max=p_pad, active=active,
+                                   device=solve_kw["device"])
+        X_cur = embed_solutions(batch, [self.ctls[b].x_current for b in idx])
+        X_init = None
+        if self.relaxed and self.x_rel_prev[idx[0]] is not None:
+            X_init = embed_solutions(batch, [self.x_rel_prev[b] for b in idx])
+        with span("replay/solve", cat="replay", bucket=str(key),
+                  compile_key=("solve_fleet_step", key, len(idx),
+                               solve_kw["capture_trace"],
+                               solve_kw["anytime"] is not None)) as sp:
+            res = solve_fleet_step(batch, X_cur, delta, x_init=X_init,
+                                   steps=self.solver_steps, **solve_kw)
+            sp.fence(res.x_int)
+        return res, (res.x.cpu().numpy() if self.relaxed or need_rel
+                     else None)
+
+    def committed(self, b: int, i: int, x: np.ndarray,
+                  x_rel: Optional[np.ndarray], cold: bool) -> None:
+        """Keep lane ``i`` (tenant ``b``)'s relaxed solution as its next
+        warm start."""
+        if self.relaxed:
+            self.x_rel_prev[b] = x_rel
+
+    def solver(self, cold: bool) -> str:
+        """The engine the health monitor records for a commit."""
+        return "multistart" if cold else "adaptive"
+
+
+class _MPCLanes:
+    """The receding-horizon controller's part of
+    :func:`_replay_fleet_batched`. A tick's problem is tick 0 of the
+    tenant's H-tick window (observed demand and forecasts, built on the
+    host by its controller). The warm tick stacks the bucket's windows at
+    its dims and union term signature, B·H problems lane-major in one
+    ``stack_windows`` call, and solves them in one
+    ``solve_horizon_fleet_step`` (engine and budget from
+    ``solver_config``; ``hot_loop="vmap"`` solves every window alone at
+    its true shape). Each lane keeps its relaxed plan for the next warm
+    start. With ``cold_start="window"`` the cold tick's per-start rounded
+    candidates are re-ranked by each tenant's whole window, as the
+    sequential controller ranks them."""
+
+    controller = "mpc"
+    relaxed = False       # the warm start is the shifted plan
+
+    def __init__(self, catalog: Catalog, tenants: Sequence[TenantSpec],
+                 mpc_kwargs: dict, use_kernel: bool):
+        self.ctls = [_make_mpc_controller(catalog, spec, **mpc_kwargs)
+                     for spec in tenants]
+        self.horizon = mpc_kwargs["horizon"]
+        self.cold_start = mpc_kwargs["cold_start"]
+        self.coupling = (mpc_kwargs["coupling_w"], mpc_kwargs["coupling_eps"])
+        # every controller of the replay shares one config
+        self.cfg = self.ctls[0].solver_config
+        self.use_kernel = use_kernel
+        self.windows: List = [None] * len(tenants)
+        self.plans: Optional[np.ndarray] = None   # the last warm bucket's
+
+    def problem(self, b: int, demand: np.ndarray):
+        """Tenant ``b``'s window of this tick; returns its tick 0."""
+        ctl = self.ctls[b]
+        self.windows[b] = ctl.window_problems(ctl.window_demands(demand))
+        return self.windows[b][0]
+
+    def cold_counts(self, idx, res, X_int, n_true) -> List[np.ndarray]:
+        """Each lane's cold commit: the best rounded start, or with
+        ``cold_start="window"`` the start its window ranks first."""
+        if self.cold_start != "window":
+            return [X_int[i, :n] for i, n in enumerate(n_true)]
+        from ..horizon import select_window_candidate, window_candidate_scores
+        cand_all = res.x_int_all.cpu().numpy().astype(np.float64)
+        feas_all = res.feas_int_all.cpu().numpy()
+        out = []
+        for i, (b, n) in enumerate(zip(idx, n_true)):
+            cands = cand_all[i, :, :n]
+            scores = window_candidate_scores(self.windows[b], cands,
+                                             self.use_kernel,
+                                             res.x_int.device)
+            out.append(cands[select_window_candidate(scores, feas_all[i])])
+        return out
+
+    def warm(self, idx, key, probs, active, delta, need_rel, solve_kw):
+        """Stack the bucket's windows and solve its warm tick: ``(res,
+        X_rel)``, X_rel the committed tick's relaxed row of each lane's
+        plan (the plans stay on ``self.plans``)."""
+        from ..horizon import solve_horizon_fleet_step, stack_windows
+        n_pad, m_pad, p_pad, _ = key
+        H = self.horizon
+        with span("replay/stack", cat="replay", bucket=str(key)):
+            wins = [self.windows[b] for b in idx]
+            hp = stack_windows(wins, coupling_w=self.coupling[0],
+                               coupling_eps=self.coupling[1], n_max=n_pad,
+                               m_max=m_pad, p_max=p_pad,
+                               term_kinds=union_term_kinds(
+                                   [w[0] for w in wins]),
+                               device=solve_kw["device"])
+            X_cur = np.zeros((len(idx), n_pad), np.float32)
+            X_init = np.zeros((len(idx), H, n_pad), np.float32)
+            for i, b in enumerate(idx):
+                n_true = probs[b].n
+                X_cur[i, :n_true] = self.ctls[b].x_current
+                X_init[i, :, :n_true] = self.ctls[b].shifted_plan()
+            dims = tuple(np.asarray([getattr(w[0], f) for w in wins],
+                                    np.int64) for f in ("n", "m", "p"))
+        with span("replay/solve", cat="replay", bucket=str(key),
+                  compile_key=("solve_horizon_fleet_step", key, len(idx), H,
+                               solve_kw["capture_trace"],
+                               solve_kw["anytime"] is not None)) as sp:
+            res = solve_horizon_fleet_step(hp, X_cur, delta, x_init=X_init,
+                                           active=active, cfg=self.cfg,
+                                           dims=dims, **solve_kw)
+            sp.fence(res.x_int)
+        self.plans = res.plan.cpu().numpy().astype(np.float64)
+        return res, self.plans[:, 0]
+
+    def committed(self, b: int, i: int, x: np.ndarray,
+                  x_rel: Optional[np.ndarray], cold: bool) -> None:
+        """Keep tenant ``b``'s plan: the cold counts held over the window,
+        or lane ``i``'s relaxed plan."""
+        self.ctls[b].plan = (np.tile(x, (self.horizon, 1)) if cold
+                             else self.plans[i, :, :len(x)])
+
+    def solver(self, cold: bool) -> str:
+        """The engine the health monitor records for a commit."""
+        return "multistart" if cold else self.cfg.solver
+
+
+def _replay_fleet_batched(lanes, tenants: Sequence[TenantSpec], *,
+                          hot_loop: str, device: torch.device,
                           capture_solver_trace: bool = False,
                           health: Optional[HealthMonitor] = None,
                           anytime: Optional[AnytimeConfig] = None):
     """Step ALL tenants through their traces with one batched solve per
-    shape bucket per tick. Returns ``(histories, solver_traces)``.
+    shape bucket per tick; ``lanes`` (:class:`_MyopicLanes` or
+    :class:`_MPCLanes`) holds the controllers and their part of the tick.
+    Returns ``(histories, solver_traces)``.
 
-    Each tick is a ``replay/tick`` span over per-bucket ``replay/stack`` /
-    ``replay/solve`` / ``replay/round`` spans (solve spans fenced, with a
-    compile key per program and bucket). A :class:`HealthMonitor` observes
-    every committed (tenant, tick) — counts, the relaxed solution for the
-    KKT gauge (certified on ``device``), the trace for stall detection —
-    and the FLEET tick's duration against its deadline budget."""
+    Tick 0 is the cold ``solve_fleet`` from per-tenant starts at true
+    shape (seed 0), every later tick the controller's warm solve. Frozen
+    tenants keep their last problem so stacked shapes stay put (their
+    results are discarded). Each tick is a ``replay/tick`` span over
+    per-bucket ``replay/stack`` / ``replay/solve`` / ``replay/round``
+    spans (solve spans fenced, with a compile key per program and bucket).
+    A :class:`HealthMonitor` observes every committed (tenant, tick) —
+    counts, the relaxed solution for the KKT gauge (certified on
+    ``device``), the trace for stall detection — and the FLEET tick's
+    duration against its deadline budget."""
+    ctls = lanes.ctls
     traces = [np.asarray(spec.trace, np.float64) for spec in tenants]
     T_len = np.asarray([tr.shape[0] for tr in traces])
-    ctls = [_make_controller(catalog, spec) for spec in tenants]
     groups = _replay_batch_groups(ctls, tenants)
-    # previous tick's RELAXED solution per tenant (warm_start="relaxed")
-    x_rel_prev: List[Optional[np.ndarray]] = [None] * len(tenants)
-    # each tenant's problem of the CURRENT tick; frozen tenants keep their
-    # last one so stacked shapes stay put (its solve result is discarded)
+    # each tenant's problem of the CURRENT tick
     probs: List = [None] * len(tenants)
     solver_traces: List[List] = [[] for _ in tenants]
     obs = _TickObserver(health)
     timed = anytime is not None and anytime.enabled
+    solve_kw = dict(hot_loop=hot_loop, device=device,
+                    capture_trace=capture_solver_trace,
+                    anytime=anytime if timed else None)
 
     for t in range(int(T_len.max())):
         obs.tick_start()
+        cold = t == 0
         # ticks 0 (the cold program) and 1 (the first warm one) are each
         # the first sighting of their key
-        tick_key = ("tick", "batched", "myopic", min(t, 1))
+        tick_key = ("tick", "batched", lanes.controller, min(t, 1))
         with span("replay/tick", cat="replay", tick=t, engine="batched",
-                  controller="myopic", compile_key=tick_key):
+                  controller=lanes.controller, compile_key=tick_key):
             tick_iters = 0
-            for b, ctl in enumerate(ctls):
+            for b in range(len(ctls)):
                 if t < T_len[b]:
-                    probs[b] = ctl.make_problem(traces[b][t])
+                    probs[b] = lanes.problem(b, traces[b][t])
             for key, idx in sorted(groups.items()):
                 n_pad, m_pad, p_pad, n_starts = key
                 active = T_len[idx] > t                 # (Bk,) liveness
                 if not active.any():
                     continue    # whole bucket expired: nothing left to solve
-                with span("replay/stack", cat="replay", bucket=str(key)):
-                    batch = stack_problems([probs[b] for b in idx],
-                                           n_max=n_pad, m_max=m_pad,
-                                           p_max=p_pad, active=active,
-                                           device=device)
-                if t == 0:
-                    # cold start: per-tenant starts at true shape, seed 0
+                n_true = [probs[b].n for b in idx]
+                if cold:
+                    with span("replay/stack", cat="replay", bucket=str(key)):
+                        batch = stack_problems([probs[b] for b in idx],
+                                               n_max=n_pad, m_max=m_pad,
+                                               p_max=p_pad, active=active,
+                                               device=device)
+                    # per-tenant starts at true shape, seed 0
                     with span("replay/solve", cat="replay", bucket=str(key),
                               compile_key=("solve_fleet", key, len(idx)),
                               cold=True) as sp:
@@ -446,62 +650,52 @@ def _replay_fleet_batched(catalog: Catalog, tenants: Sequence[TenantSpec], *,
                     lane_iters = np.zeros(len(idx), np.int64)
                     tick_iters += int(res.iters)
                     bucket_hit = False
+                    # the relaxed solution crosses to the host only where
+                    # it is used: the warm start or the KKT gauge
+                    X_rel = (res.x.cpu().numpy()
+                             if lanes.relaxed or health is not None
+                             else None)
                 else:
-                    X_cur = embed_solutions(
-                        batch, [ctls[b].x_current for b in idx])
-                    X_init = None
-                    if (warm_start == "relaxed"
-                            and x_rel_prev[idx[0]] is not None):
-                        X_init = embed_solutions(
-                            batch, [x_rel_prev[b] for b in idx])
                     delta = np.asarray([tenants[b].delta_max for b in idx],
                                        np.float32)
-                    with span("replay/solve", cat="replay", bucket=str(key),
-                              compile_key=("solve_fleet_step", key, len(idx),
-                                           capture_solver_trace,
-                                           timed)) as sp:
-                        res = solve_fleet_step(
-                            batch, X_cur, delta, x_init=X_init,
-                            steps=solver_steps, hot_loop=hot_loop,
-                            device=device, capture_trace=capture_solver_trace,
-                            anytime=anytime)
-                        sp.fence(res.x_int)
+                    res, X_rel = lanes.warm(idx, key, probs, active, delta,
+                                            health is not None, solve_kw)
                     lane_iters = res.iters.cpu().numpy()
                     tick_iters += int(lane_iters.sum())
                     bucket_hit = bool(res.deadline_hit or False)
                 X_int = res.x_int.cpu().numpy().astype(np.float64)
-                # the relaxed solution crosses to the host only where it is
-                # used: the warm start or the health monitor's KKT gauge
-                X_rel = (res.x.cpu().numpy()
-                         if warm_start == "relaxed" or health is not None
-                         else None)
+                xs = (lanes.cold_counts(idx, res, X_int, n_true) if cold
+                      else [X_int[i, :n] for i, n in enumerate(n_true)])
                 batch_tr = getattr(res, "trace", None)
                 lane_tr = (None if batch_tr is None
                            else [f.cpu().numpy() for f in batch_tr])
+                batch_diag = getattr(res, "diag", None)
+                lane_diag = (None if batch_diag is None
+                             else [f.cpu().numpy() for f in batch_diag])
                 with span("replay/round", cat="replay", bucket=str(key)):
                     for i, b in enumerate(idx):
                         if not active[i]:
                             continue  # frozen: no churn, no metrics, no state
-                        n_true = int(batch.n_true[i])
+                        n = n_true[i]
+                        x_rel = None if X_rel is None else X_rel[i, :n]
                         step = ctls[b].apply_counts(
-                            traces[b][t], X_int[i, :n_true],
-                            replanned=(t == 0),
+                            traces[b][t], xs[i], replanned=cold,
                             solver_iters=int(lane_iters[i]),
                             deadline_hit=bucket_hit)
+                        lanes.committed(b, i, xs[i], x_rel, cold)
                         tr_b = (None if lane_tr is None else
                                 type(batch_tr)(*(f[i] for f in lane_tr)))
                         if tr_b is not None:
                             solver_traces[b].append(tr_b)
-                        if X_rel is not None and warm_start == "relaxed":
-                            x_rel_prev[b] = X_rel[i, :n_true]
                         if health is not None:
                             obs.step(tenant=tenants[b].name, tick=t,
-                                     step=step,
-                                     solver=("multistart" if t == 0
-                                             else "adaptive"),
+                                     step=step, solver=lanes.solver(cold),
                                      lane=i,
                                      prob=problem_to(probs[b], device),
-                                     x_rel=X_rel[i, :n_true], trace=tr_b,
+                                     x_rel=x_rel, trace=tr_b,
+                                     diag=(None if lane_diag is None else
+                                           type(batch_diag)(
+                                               *(f[i] for f in lane_diag))),
                                      spot_unavailable=_spot_unavailable(
                                          tenants[b], t))
             gauge("replay/solver_iters", tick_iters)
@@ -509,13 +703,17 @@ def _replay_fleet_batched(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     return [ctl.history for ctl in ctls], solver_traces
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
-
-
 def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
                  replay_mode: str = "sequential",
                  controller: str = "myopic",
+                 horizon: int = 8,
+                 forecaster: str = "last_value",
+                 forecaster_kwargs: Optional[dict] = None,
+                 coupling_w: Optional[float] = None,
+                 coupling_eps: Optional[float] = None,
+                 solver_config=None,
+                 cold_start: str = "myopic",
+                 run_oracle_baseline: bool = False,
                  run_ca_baseline: bool = True,
                  ca_engine: str = "vectorized",
                  ca_expander: str = "random",
@@ -529,11 +727,25 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
                  device: DeviceLike = None) -> FleetReplayResult:
     """Replay every tenant; returns per-tenant histories + fleet aggregates.
 
-    The port runs both engines with the myopic controller; the defaults
-    are the reference's, and what is not ported yet raises
-    ``NotImplementedError``. ``replay_mode="sequential"`` steps one
-    controller per tenant, one solve per tenant per tick;
+    The defaults are the reference's. ``replay_mode="sequential"`` steps
+    one controller per tenant, one solve per tenant per tick;
     ``"batched"`` one solve per shape bucket per tick (module docstring).
+
+    ``controller="myopic"`` is the paper's loop (each tick solves for the
+    current demand under the L1 churn bound); ``"mpc"`` the receding-
+    horizon controller (``repro_torch.horizon``): each tick forecasts
+    ``horizon`` ticks with ``forecaster`` (a ``horizon.forecast`` kind,
+    ``forecaster_kwargs`` forwarded, the tenant's own trace supplied so
+    ``"oracle"`` works), solves the time-expanded program with smoothed
+    churn coupling (``coupling_w`` / ``coupling_eps``, default
+    ``horizon.problem``'s), and commits tick 0; ``horizon=1`` commits the
+    myopic controller's allocations exactly. ``solver_config`` (a
+    ``horizon.HorizonSolverConfig``: "adaptive", "fixed" or "admm", its
+    budget and weights; default one with ``solver_steps`` steps) and
+    ``cold_start`` ("myopic" or "window") are MPC-only, and so is
+    ``run_oracle_baseline``: the same fleet and controller replayed once
+    more under the oracle forecaster, its metrics on
+    ``FleetReplayMetrics.oracle`` for ``regret_vs_oracle``.
     ``run_ca_baseline`` also replays the Cluster-
     Autoscaler baseline on the same traces (``FleetReplayMetrics.baseline``):
     ``ca_engine="vectorized"`` steps every tenant at once per tick,
@@ -564,7 +776,11 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     WARM solve at its deadline and deploys the best-so-far feasible
     iterate, marking the step's ``deadline_hit`` (every lane of a truncated
     bucket solve); cold ticks are never truncated. Anytime and
-    ``capture_solver_trace`` exclude each other."""
+    ``capture_solver_trace`` exclude each other, and an MPC replay under
+    a deadline needs the adaptive engine. With MPC, ``hot_loop`` acts as
+    with the myopic controller: "kernel" and "ref" pick eq. (1)'s route at
+    every tick, "vmap" solves each tenant's window alone in the batched
+    engine."""
     if len(tenants) == 0:
         raise ValueError("replay_fleet needs at least one TenantSpec; got an "
                          "empty tenant list")
@@ -579,20 +795,39 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     if anytime is not None and anytime.enabled and capture_solver_trace:
         raise ValueError("anytime deadlines and capture_solver_trace are "
                          "mutually exclusive; drop one")
-    if controller == "mpc":
-        raise _not_ported('controller="mpc"')
+    if run_oracle_baseline and controller != "mpc":
+        raise ValueError("run_oracle_baseline compares a forecast-driven MPC "
+                         "replay against its oracle-forecast twin; it "
+                         'requires controller="mpc"')
     dev = resolve_device(device)
+    use_kernel = _use_kernel(hot_loop)
+    if controller == "mpc":
+        from ..horizon import (DEFAULT_COUPLING_EPS, DEFAULT_COUPLING_W,
+                               HorizonSolverConfig)
+        coupling_w = DEFAULT_COUPLING_W if coupling_w is None else coupling_w
+        coupling_eps = (DEFAULT_COUPLING_EPS if coupling_eps is None
+                        else coupling_eps)
+        if solver_config is None:
+            solver_config = HorizonSolverConfig(steps=solver_steps)
+        mpc_kwargs = dict(horizon=horizon, forecaster=forecaster,
+                          forecaster_kwargs=forecaster_kwargs,
+                          coupling_w=coupling_w, coupling_eps=coupling_eps,
+                          solver_config=solver_config, cold_start=cold_start)
     if replay_mode == "sequential":
-        use_kernel = _use_kernel(hot_loop)
-        ctls = [_make_controller(catalog, spec, dev, use_kernel)
+        ctls = [_make_mpc_controller(catalog, spec, device=dev,
+                                     use_kernel=use_kernel, **mpc_kwargs)
+                if controller == "mpc"
+                else _make_controller(catalog, spec, dev, use_kernel)
                 for spec in tenants]
         histories, traces_out = _replay_sequential(
-            ctls, tenants, capture_solver_trace, health=health,
+            ctls, tenants, controller, capture_solver_trace, health=health,
             anytime=anytime)
     else:
+        lanes = (_MPCLanes(catalog, tenants, mpc_kwargs, use_kernel)
+                 if controller == "mpc"
+                 else _MyopicLanes(catalog, tenants, warm_start, solver_steps))
         histories, traces_out = _replay_fleet_batched(
-            catalog, tenants, warm_start=warm_start,
-            solver_steps=solver_steps, hot_loop=hot_loop, device=dev,
+            lanes, tenants, hot_loop=hot_loop, device=dev,
             capture_solver_trace=capture_solver_trace, health=health,
             anytime=anytime)
     if not run_ca_baseline:
@@ -602,6 +837,18 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
     else:
         cas = [_ca_baseline(catalog, spec, ca_expander, ca_mode)
                for spec in tenants]
+    oracle_metrics = None
+    if run_oracle_baseline:  # the oracle twin is a baseline: never traced
+        oracle = replay_fleet(catalog, tenants, replay_mode=replay_mode,
+                              controller="mpc", horizon=horizon,
+                              forecaster="oracle", coupling_w=coupling_w,
+                              coupling_eps=coupling_eps,
+                              solver_config=solver_config,
+                              cold_start=cold_start,
+                              run_ca_baseline=False, warm_start=warm_start,
+                              solver_steps=solver_steps, hot_loop=hot_loop,
+                              device=dev)
+        oracle_metrics = [r.metrics for r in oracle.tenants]
     with span("replay/metrics", cat="replay"):
         replays = [_assemble_replay(spec, steps, ca)
                    for spec, steps, ca in zip(tenants, histories, cas)]
@@ -610,6 +857,7 @@ def replay_fleet(catalog: Catalog, tenants: Sequence[TenantSpec], *,
             baseline=([r.ca_metrics for r in replays]
                       if run_ca_baseline else None),
             replay_mode=replay_mode, controller=controller,
+            oracle=oracle_metrics,
             health=health.report() if health is not None else None)
     return FleetReplayResult(
         tenants=replays, metrics=metrics,

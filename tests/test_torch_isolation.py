@@ -29,6 +29,7 @@ for name in names:
     importlib.import_module(name)
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro")
                for k in sys.modules), sorted(sys.modules)
+print(" ".join(names))
 print(len(names))
 """
 
@@ -40,6 +41,9 @@ def test_every_module_imports_without_jax_or_repro():
                                         "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20
+    walked = set(out.stdout.split())
+    for mod in ("forecast", "problem", "solver", "admm", "controller"):
+        assert f"repro_torch.horizon.{mod}" in walked, mod
 
 
 def test_no_jax_or_repro_import_in_source():
@@ -79,6 +83,14 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
     with pytest.raises(RuntimeError):
         replay_fleet(cat, [spec], replay_mode="batched",
                      run_ca_baseline=False)
+    for mode in ("sequential", "batched"):
+        with pytest.raises(RuntimeError):
+            replay_fleet(cat, [spec], replay_mode=mode, controller="mpc",
+                         horizon=2, run_ca_baseline=False)
+    from repro_torch.horizon import stack_windows, solve_horizon_fleet_step
+    with pytest.raises(RuntimeError):
+        solve_horizon_fleet_step(stack_windows([[prob, prob]]),
+                                 np.zeros((1, cat.n)), 1.0)
     assert resolve_device("cpu").type == "cpu"
 
 

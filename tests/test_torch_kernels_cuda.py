@@ -396,3 +396,64 @@ def test_terms_kernel_route_matches_plain_at_4096(cuda, B, T):
     _close(obj.grad_objective(prob, X), gp)
     bare = obj.objective(prob._replace(terms=()), X)
     assert not torch.allclose(bare, fk)
+
+
+@pytest.mark.parametrize("B,H,T", [(8, 8, 1), (8, 8, 12), (3, 5, 12)])
+def test_horizon_window_route_matches_plain(cuda, B, H, T):
+    """The horizon solver's eq. (1) route on the card: every tick of B
+    windows of H ticks (the B·H stack, lane-major) and the planned ticks'
+    B·(H-1) stack of the ADMM prox, each in one kernel launch, against the
+    plain version; gradient at T = 1, ladder values at T = 12."""
+    from repro_torch.horizon import stack_windows
+    from repro_torch.horizon.problem import flatten_lanes, tick_grads, tick_values
+    from repro_torch.horizon.solver import _window
+    wins = [[_problem(10 * b + h, 4, 1880, 2, cuda) for h in range(H)]
+            for b in range(B)]
+    hp = stack_windows(wins, n_max=2048, m_max=4, p_max=2)
+    gen = torch.Generator(device=cuda).manual_seed(B * H + T)
+    mask = hp.problem.mask
+    lead = (T,) if T > 1 else ()
+    X = 5.0 * torch.rand((B, *lead, H, 2048), generator=gen, device=cuda)
+    X = X * (mask[:, None] if T > 1 else mask)
+    P = flatten_lanes(hp.problem)
+    ops.reset_launches()
+    got = tick_values(P, X)
+    assert sum(ops.LAUNCHES.values()) == 1
+    assert got.shape == (B, *lead, H)
+    _close(got, tick_values(P, X, use_kernel=False))
+    if T == 1:
+        ops.reset_launches()
+        g = tick_grads(P, X)
+        assert ops.LAUNCHES["alloc_objective_fleet"] == 1
+        _close(g, tick_grads(P, X, use_kernel=False))
+    rest = _window(hp.problem, hp.coupling_w, hp.coupling_eps, B, H).rest
+    assert rest.K.shape[0] == B * (H - 1)
+    Xr = X[..., 1:, :].movedim(-2, 1).reshape(B * (H - 1), *lead, 2048)
+    ops.reset_launches()
+    fr = obj.objective(rest, Xr)
+    assert sum(ops.LAUNCHES.values()) == 1
+    _close(fr, obj.objective(rest, Xr, use_kernel=False))
+
+
+@pytest.mark.parametrize("solver", ["adaptive", "admm"])
+def test_horizon_h1_fleet_step_is_the_myopic_step_on_the_card(cuda, solver):
+    """H = 1 on the kernel: solve_horizon_fleet_step commits exactly what
+    solve_fleet_step commits (plan, counts, objectives, iterations), and
+    both launch the fleet kernel."""
+    from repro_torch.fleet import solve_fleet_step
+    from repro_torch.horizon import (HorizonSolverConfig,
+                                     solve_horizon_fleet_step, stack_windows)
+    from repro_torch.fleet.batching import tenant_problem
+    batch, X = _warm_fleet(cuda)
+    ops.reset_launches()
+    fs = solve_fleet_step(batch, X, 6.0, device=cuda)
+    assert ops.LAUNCHES["alloc_objective_fleet"] > 0
+    hp = stack_windows([[tenant_problem(batch, b)] for b in range(batch.B)])
+    ops.reset_launches()
+    hs = solve_horizon_fleet_step(hp, X, 6.0,
+                                  cfg=HorizonSolverConfig(solver=solver),
+                                  device=cuda)
+    assert ops.LAUNCHES["alloc_objective_fleet"] > 0
+    assert torch.equal(fs.x, hs.plan[:, 0])
+    for f in ("x_int", "fun_int", "feasible", "iters"):
+        assert torch.equal(getattr(fs, f), getattr(hs, f)), f

@@ -127,16 +127,6 @@ def test_sequential_mode_runs_by_default():
     assert "savings vs CA" in out.metrics.summary()
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(replay_mode="batched", controller="mpc", run_ca_baseline=False),
-])
-def test_unported_options_raise(kwargs):
-    cat = tcore.Catalog(tcore.make_cloud_catalog().instances[::40])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfleet.replay_fleet(cat, _specs(tfleet.TenantSpec, tfleet.make_trace),
-                            device="cpu", **kwargs)
-
-
 def _tight(Config):
     """An anytime budget that truncates every warm solve: a fake clock
     burning 5 ms a reading against 12 ms, 4-iteration chunks."""
