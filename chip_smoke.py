@@ -5,7 +5,10 @@
 
 Phases, one JSON object per line:
 
-1. setup   — torch and CUDA versions, the card's name and power limit.
+1. setup   — torch and CUDA versions, the card's name and power limit,
+             and the port's provenance block
+             (``repro_torch.obs.provenance_block(device="cuda")``: git SHA,
+             torch, CUDA, backend, the card's name and power limit).
 2. build   — compiles the four CUDA kernel sources of the checkout
              (alloc_objective, flash_attention, decode_attention,
              rwkv6_scan) with nvcc into build/repro_torch_kernels/, one
@@ -154,7 +157,18 @@ Phases, one JSON object per line:
              plain: the worst lane's residual histories, the committed
              counts held at the replay's tolerances; (d) torch.profiler
              over one adaptive warm step on those windows, 60 iterations
-             (device busy share, launches). mpc_shapes — the
+             (device busy share, launches). obs_export — no new replay:
+             the myopic batched kernel replay of (a), recorded under
+             ``telemetry()``, written with ``write_jsonl`` and
+             ``write_chrome_trace`` to a temporary directory, both files
+             revalidated, and rolled up by ``ReplayReport``; and
+             ``admm_trace_summary`` of each lane of (c)'s traced kernel
+             step. It fails on a validation problem, a report without a
+             ``replay/tick`` span or with other tick counts than the
+             replay's, a ``replay/stack`` span without its
+             ``stack/padding_waste`` sample, or a summary whose first and
+             final residuals or outer iterations are not those of
+             ``admm_residual_history``. mpc_shapes — the
              kernel at the window's B x H = 64 and the ADMM planned
              prox's B x (H - 1) = 56 stacks (n = 2048; T = 1 value and
              gradient, T = 12 value) against its plain version, timed
@@ -1943,9 +1957,12 @@ def mpc_checks(dev, ops) -> tuple:
     and plain lie within TENANT_RTOL per lane and FLEET_RTOL summed, with
     equal feasibility, and the kernel run launched the planned prox's
     B·(H-1) stack; (d) profiles one adaptive warm step on the same
-    windows, MPC_PROFILE_STEPS iterations. Returns (record, probes):
-    probes are (label, stacked problem, entry, T) of the window stack and
-    the planned prox's stack, whose shapes the kernels line times."""
+    windows, MPC_PROFILE_STEPS iterations. Returns (record, probes,
+    observed): probes are (label, stacked problem, entry, T) of the window
+    stack and the planned prox's stack, whose shapes the kernels line
+    times; observed holds what ``obs_export_checks`` reads (the myopic
+    replay and its recorder, the kernel ADMM step's trace and residual
+    histories)."""
     from dataclasses import replace
 
     import numpy as np
@@ -1975,7 +1992,8 @@ def mpc_checks(dev, ops) -> tuple:
                   run_ca_baseline=False, device=dev)
 
     def run(hot_loop, fleet, **kw):
-        """One replay, launches counted, its telemetry ticks timed."""
+        """One replay, launches counted, its telemetry ticks timed; returns
+        the result, its record and its telemetry recorder."""
         ops.reset_launches()
         with ShapeCounts(ops, with_n=True) as shapes, telemetry() as rec:
             torch.cuda.synchronize()
@@ -1990,12 +2008,12 @@ def mpc_checks(dev, ops) -> tuple:
             raise AssertionError("mpc: non-integral counts")
         return out, {"wall_s": wall, "tick_s": ticks,
                      "launches": dict(ops.LAUNCHES),
-                     "launches_by_shape": shapes.by_shape()}
+                     "launches_by_shape": shapes.by_shape()}, rec
 
     # (a) H = 1 against the myopic batched kernel replay
-    myo, myo_rec = run("kernel", specs, replay_mode="batched",
-                       run_ca_baseline=False, device=dev)
-    h1, h1_rec = run("kernel", specs, **{**mpc_kw, "horizon": 1})
+    myo, myo_rec, myo_tel = run("kernel", specs, replay_mode="batched",
+                                run_ca_baseline=False, device=dev)
+    h1, h1_rec, _ = run("kernel", specs, **{**mpc_kw, "horizon": 1})
     h1_equal = all(np.array_equal(x, y) for a, b in zip(counts(myo),
                                                        counts(h1))
                    for x, y in zip(a, b))
@@ -2009,8 +2027,8 @@ def mpc_checks(dev, ops) -> tuple:
     # (b) H = MPC_HORIZON, kernel (with the oracle twin) then plain
     runs = {}
     for who, hot_loop in (("kernel", "kernel"), ("plain", "ref")):
-        out, rec = run(hot_loop, specs, run_oracle_baseline=who == "kernel",
-                       **mpc_kw)
+        out, rec, _ = run(hot_loop, specs,
+                          run_oracle_baseline=who == "kernel", **mpc_kw)
         m = out.metrics
         ticks = rec["tick_s"][:MPC_TICKS]     # the replay's; the twin's next
         iters = [sum(r.steps[t].solver_iters for r in out.tenants)
@@ -2075,7 +2093,7 @@ def mpc_checks(dev, ops) -> tuple:
         X_init[i, :, :catalog.n] = ctl.shifted_plan()
     delta = np.asarray([sp.delta_max for sp in specs], np.float32)
     W = _window(hp.problem, hp.coupling_w, hp.coupling_eps, B, H)
-    admm = {}
+    admm, admm_traced = {}, {}
     for who, hot_loop in (("kernel", "kernel"), ("plain", "ref")):
         ops.reset_launches()
         with ShapeCounts(ops, with_n=True) as shapes:
@@ -2092,6 +2110,7 @@ def mpc_checks(dev, ops) -> tuple:
         lanes = [admm_residual_history(type(res.trace)(
             *(f[b] for f in res.trace))) for b in range(B)]
         hist = lanes[worst]
+        admm_traced[who] = (res.trace, lanes)
         admm[who] = {
             "seconds": wall, "launches": dict(ops.LAUNCHES),
             "launches_by_shape": shapes.by_shape(),
@@ -2141,9 +2160,71 @@ def mpc_checks(dev, ops) -> tuple:
               ("admm_planned", W.rest, "alloc_objective_fleet", 1),
               ("admm_planned", W.rest, "alloc_objective_fleet_value",
                L_RUNGS)]
+    observed = {"replay": myo, "recorder": myo_tel,
+                "admm_trace": admm_traced["kernel"][0],
+                "admm_history": admm_traced["kernel"][1]}
     return ({"tenants": B, "ticks": MPC_TICKS, "n": catalog.n,
              "bucket": list(dims), "h1_vs_myopic": part_a,
-             "replay": part_b, "admm": part_c, "profile": part_d}, probes)
+             "replay": part_b, "admm": part_c, "profile": part_d}, probes,
+            observed)
+
+
+def obs_export_checks(replay, recorder, admm_trace, admm_history) -> dict:
+    """The port's observability exports on the mpc phase's records, no new
+    replay: the myopic batched kernel replay's recorder written with
+    ``write_jsonl`` and ``write_chrome_trace`` to a temporary directory,
+    both files revalidated, and rolled up by ``ReplayReport``; and
+    ``admm_trace_summary`` of each lane of the kernel ADMM step's trace
+    (CUDA tensors) against ``admm_residual_history`` of the same lane.
+    Raises on a validation problem, a report without a ``replay/tick``
+    span or with other tick counts than the replay's, a ``replay/stack``
+    span holding no ``stack/padding_waste`` sample, or a summary that is
+    not the residual history's."""
+    import tempfile
+
+    from repro_torch.obs import (ReplayReport, admm_trace_summary,
+                                 lane_trace, validate_chrome_trace,
+                                 validate_jsonl, write_chrome_trace,
+                                 write_jsonl)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = write_chrome_trace(recorder, Path(tmp) / "trace.json")
+        jsonl = write_jsonl(recorder, Path(tmp) / "trace.jsonl")
+        problems = ([f"trace: {p}" for p in validate_chrome_trace(trace)]
+                    + [f"jsonl: {p}" for p in validate_jsonl(jsonl)])
+        sizes = {"trace_bytes": trace.stat().st_size,
+                 "jsonl_bytes": jsonl.stat().st_size}
+    report = ReplayReport.from_recorder(recorder)
+    ticks = max(len(t.steps) for t in replay.tenants)
+    waste = [ts for ts, _ in recorder.gauges.get("stack/padding_waste", [])]
+    stacks = recorder.spans("replay/stack")
+    unsampled = [e.tags for e in stacks
+                 if not any(e.ts_us <= ts <= e.ts_us + e.dur_us
+                            for ts in waste)]
+    summaries = [admm_trace_summary(lane_trace(admm_trace, b))
+                 for b in range(len(admm_history))]
+    admm_equal = [bool(
+        s["admm_iters"] == len(primal) and s["primal_first"] == primal[0]
+        and s["primal_final"] == primal[-1] and s["dual_first"] == dual[0]
+        and s["dual_final"] == dual[-1])
+        for s, (primal, dual) in zip(summaries, admm_history)]
+    rec = {"problems": problems, **sizes, "spans": len(recorder.events),
+           "report_ticks": report.n_ticks, "replay_ticks": ticks,
+           "stack_spans": len(stacks), "padding_waste_samples": len(waste),
+           "stack_spans_unsampled": unsampled, "report": report.to_dict(),
+           "admm_summaries": summaries, "admm_summary_equal": admm_equal}
+    if problems:
+        raise AssertionError(f"obs_export: invalid exports: {problems}")
+    if not recorder.spans("replay/tick") or report.n_ticks != ticks:
+        raise AssertionError(f"obs_export: the report counts "
+                             f"{report.n_ticks} ticks, the replay {ticks}")
+    if not stacks or unsampled:
+        raise AssertionError(f"obs_export: replay/stack spans without a "
+                             f"padding_waste sample: {unsampled} of "
+                             f"{len(stacks)}")
+    if not (summaries and all(admm_equal)):
+        raise AssertionError(f"obs_export: admm_trace_summary differs from "
+                             f"admm_residual_history: {admm_equal}")
+    return rec
 
 
 def serve_alloc_checks(dev, ops, seed: int) -> dict:
@@ -2465,6 +2546,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rwkv6_scan import ops as sops
+    from repro_torch.obs.provenance import provenance_block
     sources = {"alloc_objective": ops.SOURCE, "flash_attention": fops.SOURCE,
                "decode_attention": dops.SOURCE, "rwkv6_scan": sops.SOURCE}
 
@@ -2475,6 +2557,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi,
+          "provenance": provenance_block(config=vars(args),
+                                         seeds=[args.seed], device=dev),
           "tf32": [torch.backends.cuda.matmul.allow_tf32,
                    torch.backends.cudnn.allow_tf32]})
 
@@ -2842,8 +2926,12 @@ def main() -> int:
 
     # ---- mpc: the receding-horizon controller ---------------------------
     t0 = time.perf_counter()
-    mpc, mpc_probes = mpc_checks(dev, ops)
+    mpc, mpc_probes, mpc_observed = mpc_checks(dev, ops)
     emit({"phase": "mpc", "seconds": time.perf_counter() - t0, **mpc})
+    t0 = time.perf_counter()
+    obs_export = obs_export_checks(**mpc_observed)
+    emit({"phase": "obs_export", "seconds": time.perf_counter() - t0,
+          **obs_export})
     # the kernel at the window's B·H stack and the ADMM planned prox's
     # B·(H-1) stack, timed; launches from the run that gave the shape
     t0 = time.perf_counter()

@@ -6,7 +6,8 @@ The exact Euclidean projection onto the L1 ball around ``x_current``
 ``solve_incremental_info`` runs the shared BB/Armijo engine
 (``repro_torch.core.pgd``) on the eq. (1) objective over that set: the
 controller's warm tick, and — one lane per tenant — the batched fleet
-tick ``solve_fleet_step``. On the card the engine's values and gradients
+tick ``solve_fleet_step`` (``solve_incremental`` returns its relaxed
+solution alone). On the card the engine's values and gradients
 come from the ``alloc_objective`` kernel. The same merit triple feeds the
 traced engine (``capture_trace=True``) and the chunked anytime engine
 (``anytime=AnytimeConfig(deadline_ms=...)``), so all three walk one
@@ -83,6 +84,22 @@ def incremental_anytime_chunk(prob: AllocationProblem, x_current, delta_max,
     return pgd_chunk_run(*_incremental_merit_fns(prob, x_current, delta_max,
                                                  use_kernel),
                          state, it_end, cfg)
+
+
+def solve_incremental(
+    prob: AllocationProblem,
+    x_current: torch.Tensor,
+    delta_max,
+    x_init: Optional[torch.Tensor] = None,
+    steps: int = 600,
+    cfg: Optional[PGDConfig] = None,
+) -> torch.Tensor:
+    """The relaxed solution of :func:`solve_incremental_info` alone: adaptive
+    PGD on f over the incremental-adoption set, warm-started from the
+    current allocation (or ``x_init``); ``steps`` is the iteration budget
+    unless ``cfg`` gives the whole engine config."""
+    return solve_incremental_info(prob, x_current, delta_max, x_init=x_init,
+                                  steps=steps, cfg=cfg)[0]
 
 
 def solve_incremental_info(

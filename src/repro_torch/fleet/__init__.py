@@ -28,12 +28,14 @@ __all__ = [
     "tenant_problem", "union_term_kinds",
     "BucketedFleet", "bucket_dims", "bucket_problems", "ceil_pow2",
     "scatter_from_buckets", "padding_stats",
-    "FleetReplayMetrics", "TenantReplayMetrics", "FleetReplayResult",
-    "TenantReplay", "TenantSpec", "replay_fleet", "replay_tenant",
-    "FleetSolveResult", "FleetStepResult", "make_fleet_starts", "solve_fleet",
-    "solve_fleet_bucketed", "solve_fleet_step", "TRACE_KINDS", "make_trace",
+    "FleetSolveResult", "solve_fleet", "solve_fleet_bucketed",
+    "FleetStepResult", "solve_fleet_step", "make_fleet_starts",
     "diurnal_trace", "flash_crowd_trace", "ramp_trace", "weekly_trace",
-    "constant_trace", "spot_interruption_trace",
+    "constant_trace", "spot_interruption_trace", "make_trace", "TRACE_KINDS",
+    "TenantSpec", "replay_fleet", "FleetReplayResult", "TenantReplayMetrics",
+    "FleetReplayMetrics",
     "PRIORITY_CLASSES", "with_slo_pricing", "with_priority_classes",
     "make_spot_fleet",
+    # the port's own: the reference keeps these in its replay module
+    "TenantReplay", "replay_tenant",
 ]
