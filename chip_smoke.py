@@ -199,7 +199,13 @@ Phases, one JSON object per line:
              the same inputs; rtol = atol = 2e-4 in float32, 2e-2 in
              bfloat16), at qwen1.5-4b's serving shapes and at shapes that
              cover GQA, the sliding window, a ragged S, part-filled and
-             ring-buffer validity and bfloat16; for each: device and wall ms
+             ring-buffer validity and bfloat16, and at mixtral-8x22b's
+             (prefill (8, 1024, 48/8, window 4096), decode (8, 48/8,
+             1056 slots)); in float32 each kernel and its plain version
+             are also held to the plain version in float64 (rms error over
+             the float64 output's rms): a flash kernel's within F64_RATIO
+             times the plain version's, a decode kernel's reported; for
+             each: device and wall ms
              of the kernel, of its plain version and of
              torch.nn.functional.scaled_dot_product_attention on the same
              inputs (timed only, on no path of the port), each timed over
@@ -262,6 +268,44 @@ Phases, one JSON object per line:
              and cache; output and new state must agree at rtol = atol =
              2e-3.
 
+11. serve_moe — the fourth main path: mixtral-8x22b at full width (d_model
+             6144, 48/8 heads, 8 experts top-2 of d_ff 16384, window 4096,
+             float32), its depth cut to its first MOE_LAYERS = 4 of 56
+             layers (the record's ``reduced``; 10.4 B parameters), through
+             the same step functions and prompts as phase 8, after phase
+             10's weights are freed: one flash launch per layer per prefill,
+             one decode launch per layer per step, no other kernel. The
+             prefill's MoE runs in capacity mode (B S K = 16384 > 4096,
+             C = 320), each decode step dropless (C = 2); every routing is
+             recorded (``RoutingLog``): the share of prefill assignments
+             dropped, none in decode. Each attention block of the prefill,
+             every decode step and forward over the prompt runs again plain
+             on the same input and must agree at 2e-4 (ATTN_TOL); forward
+             over the prompt must agree with the prefill at 2e-3 (over
+             prompt + generated tokens it would run another capacity). End
+             to end (``moe_end_to_end``): within SERVE_TOL of the plain
+             path; or every routing parting a near tie, no logit past
+             SERVE_TOL in a row before its parting, and the kernel path
+             within SERVE_TOL or the measured yardstick of the plain path
+             forced onto its routing (the plain path under 1e-7 embedding
+             noise, NOISE_SEEDS draws). Reported beside it: the prefill
+             with its attention in float64 (``float64_attention``), and
+             how far the kernel path and the plain path each lie from it.
+             Prefill ms, decode ms a step, peak memory, profiles as phase
+             8's.
+12. mamba  — one Mamba block at jamba-1.5-large's full width (d_model
+             8192, d_inner 16384, N 16, dt_rank 512): 8 x 1024 prefill from
+             a zeroed MambaCache, 32 one-token steps, against the block
+             over all 1056 tokens at 2e-3; prefill ms, decode ms a step,
+             peak memory. (Jamba whole does not fit one card at full width:
+             a period of 8 layers holds four 16-expert FFNs of 38.7 GB each
+             in float32.)
+13. families — every registered config at reduced() size (d_head 16): 2
+             prompts of 40 tokens and 8 decode steps, kernel route against
+             plain (launch.routes.check_routes; 2e-4 prefill, 2e-3 decode, 3e-3 for mixtral with its
+             window cut to 32 so the ring wraps), launches counted per
+             attention and RWKV layer, none on the plain route.
+
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device the script exits 2 and prints no result.
@@ -270,6 +314,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import itertools
 import json
 import re
@@ -290,11 +335,21 @@ TENANT_RTOL, FLEET_RTOL = 0.05, 2e-2   # tests/fleet/test_solve_fleet.py:113-117
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # served logits vs plain path and forward (tests/models/test_model_parts.py:40)
 SERVE_TOL = 2e-3
-NOISE_SEEDS = 3               # perturbed plain runs: rwkv6-7b's yardstick
+NOISE_SEEDS = 3               # perturbed plain runs: the measured yardstick
+# a float32 kernel's rms error against float64 over plain float32's on the
+# same inputs: the float32 routes are meant to round as float32 does, and
+# twice allows for another order of summation (a float32 flash kernel that
+# summed in the tensor cores' truncating accumulators reached 8-10 x)
+F64_RATIO = 2.0
 # kernel vs plain (tests/kernels/test_kernels.py:138-139); bf16 outputs round
 RWKV_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 SERVE_ARCH = "qwen1.5-4b"
 RWKV_ARCH = "rwkv6-7b"
+# mixtral-8x22b at full width, its depth cut to MOE_LAYERS of 56: 4 layers
+# hold 10.4 B parameters (41.7 GB in float32), all 56 would hold 564 GB
+MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 4
+# one Mamba block at jamba-1.5-large's full width
+MAMBA_ARCH = "jamba-1.5-large-398b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
 # the scenario comparison as tests/core/test_scenarios_api.py makes it:
 # optimize's starts (:14), the CA's median over seeds 0-2 (:15-18),
@@ -341,10 +396,12 @@ REPLACES = {
     "rwkv6_scan_decode": "src/repro/kernels/rwkv6_scan/kernel.py:73",
 }
 # (B, S, H, G, dh, window, dtype): qwen1.5-4b's prefill shape first (timed
-# for the kernels line), then GQA with nemotron-4-15b's heads, a sliding
-# window, a ragged S and bfloat16
+# for the kernels line), mixtral-8x22b's, then GQA with nemotron-4-15b's
+# heads, a sliding window, a ragged S and bfloat16
 FLASH_CASES = {
     "qwen-prefill": (8, 1024, 20, 20, 128, 0, "float32"),
+    # mixtral-8x22b's prefill (the window, 4096, is longer than the prompt)
+    "mixtral-prefill": (8, 1024, 48, 8, 128, 4096, "float32"),
     "gqa-48/8": (2, 1024, 48, 8, 128, 0, "float32"),
     "window-256": (2, 1024, 20, 20, 128, 256, "float32"),
     "odd-S-1000": (2, 1000, 20, 20, 128, 0, "float32"),
@@ -359,6 +416,8 @@ DECODE_CASES = {
     "part-filled": (8, 1056, 20, 20, 128, "prefix:700", "float32"),
     "ring-250": (8, 250, 20, 20, 128, "prefix:181", "float32"),
     "window-256": (8, 1056, 20, 20, 128, "band:256", "float32"),
+    # mixtral-8x22b's decode: its 1056-slot ring (min(s_max, window))
+    # full at the last step
     "gqa-48/8": (8, 1056, 48, 8, 128, "last", "float32"),
     "bf16": (8, 1056, 20, 20, 128, "last", "bfloat16"),
 }
@@ -731,6 +790,18 @@ def copies_for(nbytes: int) -> int:
     return min(8, 2 + int(2 * L2_BYTES // max(nbytes, 1)))
 
 
+def float64_errors(kern, plain, exact) -> dict:
+    """A float32 kernel's output and its plain version's, each as the rms
+    of its difference from ``exact()`` (the plain version in float64) over
+    the rms of that, and the first over the second."""
+    ref = exact()
+    rms = lambda t: float(t.double().pow(2).mean().sqrt())
+    errs = {"kernel_rms_rel": rms(kern.double() - ref) / rms(ref),
+            "plain_rms_rel": rms(plain.double() - ref) / rms(ref)}
+    errs["kernel_over_plain"] = errs["kernel_rms_rel"] / errs["plain_rms_rel"]
+    return errs
+
+
 def attention_checks(seed: int, dev):
     """Each attention kernel against its plain version at FLASH_CASES and
     DECODE_CASES, timed beside the plain version and SDPA over rotating
@@ -755,11 +826,20 @@ def attention_checks(seed: int, dev):
                  rand((B, S, G, dh), dt))
                 for _ in range(copies_for(est["bytes"]))]
         q, k, v = sets[0]
-        rec = compare(f"flash_attention {case}",
-                      fops.flash_attention(q, k, v, window).float(),
-                      fref.flash_attention_ref(q.float(), k.float(),
-                                               v.float(), window),
-                      ATTN_TOL[dtype], ATTN_TOL[dtype])
+        got = fops.flash_attention(q, k, v, window).float()
+        want = fref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        window)
+        rec = compare(f"flash_attention {case}", got, want, ATTN_TOL[dtype],
+                      ATTN_TOL[dtype])
+        if dtype == "float32":
+            rec["vs_float64"] = float64_errors(
+                got, want, lambda: fref.flash_attention_ref(
+                    q.double(), k.double(), v.double(), window))
+            if not (rec["vs_float64"]["kernel_over_plain"] <= F64_RATIO):
+                raise AssertionError(f"flash_attention {case}: farther from "
+                                     f"float64 than float32 rounds: "
+                                     f"{rec['vs_float64']}")
+        del got, want
         mask = None
         if window > 0:
             pos = torch.arange(S, device=dev)
@@ -795,11 +875,16 @@ def attention_checks(seed: int, dev):
                  rand((B, G, S, dh), dt))
                 for _ in range(copies_for(est["bytes"]))]
         q, kc, vc = sets[0]
-        rec = compare(f"decode_attention {case}",
-                      dops.decode_attention(q, kc, vc, valid_i).float(),
-                      dref.decode_attention_ref(q.float(), kc.float(),
-                                                vc.float(), ok),
-                      ATTN_TOL[dtype], ATTN_TOL[dtype])
+        got = dops.decode_attention(q, kc, vc, valid_i).float()
+        want = dref.decode_attention_ref(q.float(), kc.float(), vc.float(),
+                                         ok)
+        rec = compare(f"decode_attention {case}", got, want, ATTN_TOL[dtype],
+                      ATTN_TOL[dtype])
+        if dtype == "float32":
+            rec["vs_float64"] = float64_errors(
+                got, want, lambda: dref.decode_attention_ref(
+                    q.double(), kc.double(), vc.double(), ok))
+        del got, want
         kern_in, plain_in = rotation(sets), rotation(sets)
         lib_in = rotation([(st[0].transpose(1, 2).contiguous(), st[1], st[2])
                            for st in sets])
@@ -1061,11 +1146,234 @@ def rwkv_layerwise(cfg, params, prompts, toks, s_max) -> dict:
     return worst
 
 
-def serve(seed: int, dev, arch: str, phase: str):
-    """A serving main path: ``arch`` at full width and depth, prefill and
-    greedy decode through the step functions, then the plain-path and
-    teacher-forcing checks. Returns (record, launches of the prefill,
-    launches of the decode steps)."""
+class RoutingLog:
+    """Inside it, every MoE routing (``repro_torch.models.moe.route``) is
+    recorded call by call: the chosen experts, the router probabilities,
+    the kept assignments and the capacity. With ``force`` (an earlier
+    log's calls), each call's expert choices are replaced by the recorded
+    ones, call for call, through ``routing_from_choice`` (as ``route``
+    forms its own): the run then follows that run's routing."""
+
+    def __init__(self, force=None):
+        self.calls, self.force = [], force
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe_mod
+        self.mod, self.kept = moe_mod, moe_mod.route
+
+        def route(p, cfg, x, no_drop):
+            r = self.kept(p, cfg, x, no_drop)
+            if self.force is not None:
+                r = moe_mod.routing_from_choice(
+                    r.probs, self.force[len(self.calls)]["expert_idx"],
+                    r.capacity)
+            self.calls.append({"expert_idx": r.expert_idx, "probs": r.probs,
+                               "keep": r.keep, "capacity": r.capacity})
+            return r
+
+        moe_mod.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.kept
+
+    def dropped(self, calls) -> dict:
+        """The share of assignments dropped over ``calls`` (a slice)."""
+        keep = [c["keep"] for c in self.calls[calls]]
+        n = sum(k.numel() for k in keep)
+        kept = sum(int(k.sum()) for k in keep)
+        return {"assignments": n, "dropped": n - kept,
+                "dropped_share": (n - kept) / n if n else None,
+                "capacity": sorted({c["capacity"] for c in self.calls[calls]}),
+                "by_call": [1 - float(k.float().mean()) for k in keep]}
+
+
+def routing_partings(kern, plain, per_step: int, top_k: int) -> dict:
+    """Where two runs' routings part: at each MoE call (``per_step`` calls
+    a step: the prefill is step 0, decode step i is step i + 1), the tokens
+    whose chosen expert sets differ. A row of the batch is clean until its
+    first parting; after it, its later layers and steps see other inputs
+    (and, under capacity, the row's other slots move), so only a parting in
+    a clean row is a first parting. A first parting is a near tie when its
+    margin in the plain run (log p of the K-th expert minus that of the
+    K+1-th) is at most twice the largest log-probability difference
+    between the two runs over the call's clean tokens that did not part:
+    the router's own rounding noise at that call. Returns the first
+    partings with their margins, the count of later ones, and each row's
+    first parted step (None if it never parts)."""
+    import torch
+    rows = kern[0]["expert_idx"].shape[0]
+    first_step = [None] * rows
+    firsts, later = [], 0
+    for j, (ck, cp) in enumerate(zip(kern, plain)):
+        step = j // per_step
+        ek = ck["expert_idx"].sort(-1).values
+        ep = cp["expert_idx"].sort(-1).values
+        differ = (ek != ep).any(-1)                        # (B, S)
+        lk, lp = ck["probs"].log(), cp["probs"].log()
+        delta = (lk - lp).abs().amax(-1)                   # (B, S)
+        clean = torch.tensor([s is None for s in first_step],
+                             device=differ.device)[:, None]
+        quiet = clean & ~differ
+        noise = float(delta[quiet].max()) if bool(quiet.any()) else 0.0
+        top = lp.topk(top_k + 1, dim=-1).values
+        margin = top[..., top_k - 1] - top[..., top_k]
+        for b, s in differ.nonzero().tolist():
+            if first_step[b] is not None and first_step[b] < step:
+                later += 1
+                continue
+            firsts.append({
+                "call": j, "step": step, "layer": j % per_step, "row": b,
+                "token": s, "kernel_experts": ek[b, s].tolist(),
+                "plain_experts": ep[b, s].tolist(),
+                "margin_logp": float(margin[b, s]),
+                "router_noise_logp": noise,
+                "near_tie": float(margin[b, s]) <= 2 * noise})
+        for b in differ.any(-1).nonzero().flatten().tolist():
+            if first_step[b] is None:
+                first_step[b] = step
+    return {"first_partings": firsts, "later_partings": later,
+            "rows_first_parted_at_step": first_step,
+            "all_near_ties": all(f["near_tie"] for f in firsts)}
+
+
+def moe_end_to_end(plain_run, params, kern, plain, kern_log, plain_log,
+                   gen, per_step, top_k, phase) -> dict:
+    """The MoE model's logits end to end against the plain path. Float32
+    rounding can flip a near-tied top-k expert choice, and under capacity
+    the later slots of that row with it: the row then runs other experts
+    from there on. So: within SERVE_TOL of the plain path, done
+    (``gate`` "serve_tol"). Otherwise ("yardstick") three things must hold:
+
+    - every first parting of the two runs' routings is a near tie
+      (``routing_partings``);
+    - every logit past SERVE_TOL lies in a row at or after its first
+      parting (a row whose routing never parted stays within SERVE_TOL);
+    - the kernel path lies within SERVE_TOL, or within the measured
+      yardstick, of the plain path forced onto the kernel path's routing
+      (the same expert choices, so only the continuous differences remain).
+      The yardstick is ``rwkv_end_to_end``'s: the farthest that the plain
+      path (itself forced onto its own routing) moves under NOISE_SEEDS
+      perturbations of the embedding table by 1e-7 of itself.
+
+    Everything is reported whatever the first comparison gives."""
+    import torch
+    rec = {"vs_plain": disagreement(f"{phase} vs plain path", kern, plain,
+                                    SERVE_TOL, SERVE_TOL)}
+    over = ((kern - plain).abs() / (SERVE_TOL + SERVE_TOL * plain.abs())
+            ).amax(-1)                                     # (steps + 1, B)
+    parts = routing_partings(kern_log.calls, plain_log.calls, per_step,
+                             top_k)
+    rec["routing"] = parts
+    parted = parts["rows_first_parted_at_step"]
+    rec["over_tol_without_parting"] = [
+        (t, b) for t, b in (over > 1).nonzero().tolist()
+        if parted[b] is None or parted[b] > t]
+    table = params["embed"]["table"]
+    floors = []
+    for _ in range(NOISE_SEEDS):
+        eps = torch.randn(table.shape, generator=gen, device=table.device)
+        run_params = {**params, "embed": {"table": table * (1 + 1e-7 * eps)}}
+        del eps
+        with RoutingLog(force=plain_log.calls):
+            got = plain_run(run_params)
+        floors.append(disagreement("plain path, embedding 1e-7", got, plain,
+                                   SERVE_TOL, SERVE_TOL))
+        del run_params, got
+    rec["noise_floors"] = floors
+    rec["limit_over_tol"] = max(f["max_err_over_tol"] for f in floors)
+    with RoutingLog(force=kern_log.calls):
+        forced = plain_run(params)
+    rec["vs_plain_forced_routing"] = disagreement(
+        f"{phase} vs plain path on its routing", kern, forced, SERVE_TOL,
+        SERVE_TOL)
+    del forced
+    off = rec["vs_plain_forced_routing"]["max_err_over_tol"]
+    rec["gate"] = ("serve_tol" if rec["vs_plain"]["max_err_over_tol"] <= 1.0
+                   else "yardstick" if (
+                       parts["all_near_ties"]
+                       and not rec["over_tol_without_parting"]
+                       and off <= max(1.0, rec["limit_over_tol"]))
+                   else "failed")
+    if rec["gate"] == "failed" or not bool(torch.isfinite(kern).all()):
+        raise AssertionError(f"{phase}: the kernel path parts from the plain "
+                             f"path beyond its rounding and its routing's "
+                             f"near ties: {rec}")
+    return rec
+
+
+def float64_attention(run):
+    """``run()`` with every full-sequence attention of the model computed
+    in float64 (the plain version on float64 copies of q, k and v, one
+    batch row at a time), its output rounded back to float32: the witness
+    that the kernel path and the plain path are both held against."""
+    import torch
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    def attend(q, k, v, window=0, use_kernel=None):
+        return torch.cat([fref.flash_attention_ref(
+            q[b:b + 1].double(), k[b:b + 1].double(), v[b:b + 1].double(),
+            window).to(q.dtype) for b in range(q.shape[0])])
+
+    kept, attn_mod.flash_attention = attn_mod.flash_attention, attend
+    try:
+        return run()
+    finally:
+        attn_mod.flash_attention = kept
+
+
+def attention_layerwise(cfg, params, prompts, toks, s_max, phase) -> dict:
+    """Every attention block of a serving run held to its plain version on
+    the same input (ATTN_TOL), through the model's ``on_layer`` hook: the
+    prefill, each decode step, and forward over the prompt run again along
+    the kernel path, and each attention block runs again with
+    use_kernel=False on the same input and cache. Returns the largest
+    disagreement, and under ``rms_rel`` the largest rms of the difference
+    over the rms of the plain block's output, for the full-sequence form
+    (flash_attention) and the decode form (decode_attention) apart."""
+    import torch
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = [blk for blk, _ in layer_kinds(cfg)]
+    tol = ATTN_TOL[cfg.dtype]
+    worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0, "layer_calls": 0,
+             "tol": tol, "rms_rel": {"full": 0.0, "decode": 0.0}}
+    where = ["prefill"]
+
+    def check(i, y, cache, rerun):
+        if kinds[i] != "attn":
+            return
+        y_plain, _ = rerun(False)
+        rec = compare(f"{phase} {where[0]} layer {i} attention", y, y_plain,
+                      tol, tol)
+        for key in ("max_abs_err", "max_err_over_tol"):
+            worst[key] = max(worst[key], rec[key])
+        rms = lambda t: t.double().pow(2).mean().sqrt().item()
+        form = "decode" if y.shape[1] == 1 else "full"
+        worst["rms_rel"][form] = max(worst["rms_rel"][form],
+                                     rms(y - y_plain) / rms(y_plain))
+        worst["layer_calls"] += 1
+
+    with torch.inference_mode():
+        S = prompts.shape[1]
+        _, caches = prefill(cfg, params, {"tokens": prompts}, s_max,
+                            on_layer=check)
+        for i, tok in enumerate(toks[:-1]):
+            where[0] = f"decode {i}"
+            _, caches = decode_step(cfg, params, caches, tok, S + i,
+                                    on_layer=check)
+        where[0] = "forward"
+        forward(cfg, params, {"tokens": prompts}, on_layer=check)
+    return worst
+
+
+def serve(seed: int, dev, arch: str, phase: str, n_layers: int = 0):
+    """A serving main path: ``arch`` at full width and depth (or its first
+    ``n_layers`` layers), prefill and greedy decode through the step
+    functions, then the plain-path and teacher-forcing checks. Returns
+    (record, launches of the prefill, launches of the decode steps)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.alloc_objective import ops as aops
@@ -1085,7 +1393,12 @@ def serve(seed: int, dev, arch: str, phase: str):
             ops.reset_launches()
 
     cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if n_layers:
+        cfg = cfg.scaled(n_layers=n_layers)
     rwkv = cfg.blocks_in_group[0][0] == "rwkv"
+    moe = "moe" in cfg.ffn_pattern
+    routing = RoutingLog if moe else contextlib.nullcontext
     B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
     s_max = S + steps
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1107,27 +1420,28 @@ def serve(seed: int, dev, arch: str, phase: str):
 
     reset()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": prompts})
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_launches = counts()
-    step_logits = [logits]
-    toks = [logits.argmax(-1, keepdim=True)]
-    t0 = time.perf_counter()
-    for i in range(steps):
-        logits, caches = decode(params, caches, toks[i], S + i)
-        step_logits.append(logits)
-        toks.append(logits.argmax(-1, keepdim=True))
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
+    with routing() as kern_routes:
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = counts()
+        step_logits = [logits]
+        toks = [logits.argmax(-1, keepdim=True)]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, caches = decode(params, caches, toks[i], S + i)
+            step_logits.append(logits)
+            toks.append(logits.argmax(-1, keepdim=True))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
     launches = counts()
     decode_launches = {k: n - prefill_launches[k] for k, n in launches.items()}
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
     if rwkv:
         want_prefill, want_decode = {"rwkv6_scan": L}, {"rwkv6_scan": L * steps}
-    else:
+    else:   # every layer of the served attention models is attention
         want_prefill = {"flash_attention": L}
         want_decode = {"decode_attention": L * steps}
     for got, want in ((prefill_launches, want_prefill),
@@ -1169,16 +1483,50 @@ def serve(seed: int, dev, arch: str, phase: str):
         return torch.stack(out)
 
     reset()
-    plain_logits = plain_run(params)
+    with routing() as plain_routes:
+        plain_logits = plain_run(params)
     if any(counts().values()):
         raise AssertionError(f"the plain path launched kernels: {counts()}")
-    # (b) teacher forcing: forward over prompt + generated tokens
-    seq = torch.cat([prompts] + toks[:steps], dim=1)
+    # (b) teacher forcing: forward over prompt + generated tokens; for an
+    # MoE model over the prompt alone, against the prefill: forward over
+    # S + steps tokens would run the capacity of that length (C = 330 at
+    # 1056 tokens, 320 at 1024) and drop other assignments, in the
+    # reference too
+    seq = (prompts if moe else torch.cat([prompts] + toks[:steps], dim=1))
     with torch.inference_mode():
-        full, _ = forward(cfg, params, {"tokens": seq})
+        full, aux = forward(cfg, params, {"tokens": seq})
     forward_logits = full[:, S - 1:].transpose(0, 1)
     del full
-    if rwkv:
+    if moe:
+        layerwise = attention_layerwise(cfg, params, prompts, toks, s_max,
+                                        phase)
+        checks = moe_end_to_end(plain_run, params, kern_logits, plain_logits,
+                                kern_routes, plain_routes, gen, L,
+                                cfg.top_k, phase)
+        checks["layerwise_attention"] = layerwise
+        # the prefill with its attention in float64: which path lies nearer
+        with RoutingLog() as witness_routes:
+            witness = float64_attention(lambda: prefill(
+                params, {"tokens": prompts})[0])
+        checks["float64_attention_witness"] = {
+            "kernel": disagreement(f"{phase} prefill vs float64 attention",
+                                   kern_logits[0], witness, SERVE_TOL,
+                                   SERVE_TOL),
+            "plain": disagreement("plain prefill vs float64 attention",
+                                  plain_logits[0], witness, SERVE_TOL,
+                                  SERVE_TOL),
+            "routing_vs_kernel": routing_partings(
+                kern_routes.calls[:L], witness_routes.calls, L, cfg.top_k)}
+        del witness
+        checks["vs_forward"] = compare(f"{phase} prefill vs forward",
+                                       kern_logits[:1], forward_logits,
+                                       SERVE_TOL, SERVE_TOL)
+        checks["forward_aux"] = float(aux)
+        checks["prefill_routing"] = kern_routes.dropped(slice(0, L))
+        checks["decode_routing"] = kern_routes.dropped(slice(L, None))
+        if checks["decode_routing"]["dropped"]:
+            raise AssertionError(f"{phase}: decode dropped assignments")
+    elif rwkv:
         checks = rwkv_end_to_end(plain_run, params, cfg, gen, kern_logits,
                                  plain_logits, forward_logits, toks, phase)
         checks["layerwise"] = rwkv_layerwise(cfg, params, prompts, toks,
@@ -1191,12 +1539,16 @@ def serve(seed: int, dev, arch: str, phase: str):
                                   forward_logits, SERVE_TOL, SERVE_TOL)}
     del forward_logits
     rec = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "reduced": ({"n_layers": [cfg.n_layers, full_layers]}
+                       if cfg.n_layers != full_layers else {}),
            "d_model": cfg.d_model, "dtype": cfg.dtype,
            "params": sum(t.numel() for t in _leaves(params)),
            "B": B, "prompt": S, "steps": steps, "s_max": s_max,
            "init_s": init_s, "prefill_ms": prefill_s * 1e3,
            "prefill_tokens_per_s": B * S / prefill_s,
            "decode_ms_per_token": decode_s / steps * 1e3,
+           "decode_launches_per_step": {k: n / steps for k, n in
+                                        decode_launches.items()},
            "decode_tokens_per_s": B * steps / decode_s,
            "peak_memory_gib": peak / 2 ** 30, "launches": launches,
            "prefill_launches": prefill_launches,
@@ -1207,6 +1559,88 @@ def serve(seed: int, dev, arch: str, phase: str):
            "decode_step_profile": step_prof,
            "prefill_profile": prefill_prof}
     return rec, prefill_launches, decode_launches
+
+
+def mamba_checks(seed: int, dev) -> dict:
+    """One Mamba block at jamba-1.5-large's full width (d_model 8192,
+    d_inner 16384, N 16, dt_rank 512; random weights from ``seed``): a
+    prefill of SERVE_PROMPT tokens for SERVE_BATCH rows from a zeroed
+    MambaCache, then SERVE_STEPS one-token steps carrying the cache on,
+    against the block over all SERVE_PROMPT + SERVE_STEPS tokens at once
+    (SERVE_TOL, tests/models/test_model_parts.py:40). Prefill ms, decode ms
+    a step and peak memory; the block is plain PyTorch (the reference's
+    scan is jnp, no Pallas kernel), so it launches no kernel of ours."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import MambaCache
+    from repro_torch.models.mamba import init_mamba, mamba_block
+
+    cfg = get_config(MAMBA_ARCH)
+    B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    p = init_mamba(gen, cfg, torch.float32, dev)
+    x = torch.randn((B, S + steps, cfg.d_model), generator=gen, device=dev)
+    with torch.inference_mode():
+        mamba_block(p, cfg, x[:, :64])                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y, cache = mamba_block(p, cfg, x[:, :S],
+                               MambaCache.zeros(B, cfg, torch.float32, dev))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        ys = [y]
+        t0 = time.perf_counter()
+        for t in range(S, S + steps):
+            y, cache = mamba_block(p, cfg, x[:, t:t + 1], cache)
+            ys.append(y)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        whole, final = mamba_block(p, cfg, x)
+    rec = {"arch": cfg.name, "d_model": cfg.d_model,
+           "d_inner": cfg.mamba_d_inner, "d_state": cfg.mamba_d_state,
+           "dt_rank": p["dt_proj"].shape[0],
+           "params": sum(t.numel() for t in p.values()),
+           "B": B, "prompt": S, "steps": steps,
+           "chunk": cfg.scan_chunk or min(256, S),
+           "prefill_ms": prefill_s * 1e3,
+           "decode_ms_per_step": decode_s / steps * 1e3,
+           "peak_memory_gib": peak / 2 ** 30, "tol": SERVE_TOL,
+           "prefill_then_decode_vs_whole": disagreement(
+               "mamba", torch.cat(ys, dim=1), whole, SERVE_TOL, SERVE_TOL),
+           "final_state_vs_whole": disagreement(
+               "mamba state", cache.ssm, final.ssm, SERVE_TOL, SERVE_TOL)}
+    if not (rec["prefill_then_decode_vs_whole"]["max_err_over_tol"] <= 1.0
+            and rec["final_state_vs_whole"]["max_err_over_tol"] <= 1.0
+            and bool(torch.isfinite(whole).all())):
+        raise AssertionError(f"mamba: prefill then decode parts from the "
+                             f"block over the whole sequence: {rec}")
+    return rec
+
+
+def families_checks(seed: int, dev) -> dict:
+    """Every registered config at reduced() size (d_head 16) on the card,
+    through ``repro_torch.launch.routes.check_routes`` (as
+    tests/test_torch_families_cuda.py): its BATCH prompts of PROMPT tokens
+    and STEPS greedy decode steps through the step functions, the kernel
+    route against the plain route fed the kernel route's tokens at its TOL (2e-4 prefill, 2e-3 decode, 3e-3 for
+    mixtral, whose window is cut so that its ring buffer wraps); launch
+    counts zeroed before each run and read after: one flash launch per
+    attention layer per prefill, one decode launch per attention layer per
+    step, one rwkv6_scan launch per RWKV layer per prefill and per step,
+    none on the plain route. MoE, Mamba, the hybrid and the vision frontend
+    go through the card with both attention kernels."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import routes
+
+    out = {}
+    for arch in list_archs():
+        t0 = time.perf_counter()
+        out[arch] = routes.check_routes(arch, seed=seed, device=dev)
+        out[arch]["seconds"] = time.perf_counter() - t0
+    return {"B": routes.BATCH, "prompt": routes.PROMPT,
+            "steps": routes.STEPS, "configs": out}
 
 
 def scenario_checks(dev, ops) -> dict:
@@ -2982,6 +3416,28 @@ def main() -> int:
                                                       RWKV_ARCH, "serve_rwkv")
     rwkv_serve_rec["seconds"] = time.perf_counter() - t0
     emit(rwkv_serve_rec)
+    torch.cuda.empty_cache()
+
+    # ---- serve_moe: the fourth main path --------------------------------
+    t0 = time.perf_counter()
+    moe_serve_rec, moe_prefill, moe_decode = serve(
+        args.seed, dev, MOE_ARCH, "serve_moe", n_layers=MOE_LAYERS)
+    moe_serve_rec["seconds"] = time.perf_counter() - t0
+    emit(moe_serve_rec)
+    torch.cuda.empty_cache()
+
+    # ---- mamba: one block at jamba-1.5-large's width ---------------------
+    t0 = time.perf_counter()
+    mamba_rec = mamba_checks(args.seed, dev)
+    emit({"phase": "mamba", "seconds": time.perf_counter() - t0,
+          **mamba_rec})
+    torch.cuda.empty_cache()
+
+    # ---- families: every registered config at reduced() size -------------
+    t0 = time.perf_counter()
+    families = families_checks(args.seed, dev)
+    emit({"phase": "families", "seconds": time.perf_counter() - t0,
+          **families})
 
     # ---- the closing lines ---------------------------------------------
     kernels = []
@@ -3071,11 +3527,22 @@ def main() -> int:
          rwkv_prefill["rwkv6_scan"]),
         ("rwkv6_scan_decode", rwkv_measured["rwkv6_scan_decode"],
          "rwkv6_scan", rwkv_decode["rwkv6_scan"])]
+    # mixtral-8x22b's shapes, with their launches in the serve_moe run
+    by_case = {(c["name"], c["case"]): c for c in attn_checks}
+    model_kernels += [
+        ("flash_attention (B=8,S=1024,H=48,G=8,window=4096, serve_moe)",
+         by_case["flash_attention", "mixtral-prefill"], "flash_attention",
+         moe_prefill["flash_attention"]),
+        ("decode_attention (B=8,S_max=1056,H=48,G=8, serve_moe)",
+         by_case["decode_attention", "gqa-48/8"], "decode_attention",
+         moe_decode["decode_attention"])]
     for name, rec, kernel, launches in model_kernels:
+        if launches == 0:
+            raise AssertionError(f"{name} was never launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": str(sources[kernel].relative_to(root)),
-            "replaces": REPLACES[name], "launches": launches,
+            "replaces": REPLACES[name.split(" ")[0]], "launches": launches,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Three facts about the tensor-core instructions flash_attention.cu and
+"""Four facts about the tensor-core instructions flash_attention.cu and
 rwkv6_scan.cu are built on, measured on one NVIDIA GPU.
 
     python3 mma_probe.py [--out build/mma_probe.jsonl]
@@ -19,6 +19,12 @@ rwkv6_scan.cu are built on, measured on one NVIDIA GPU.
    m16n8k8 product whose only nonzero A value is the subnormal 2^-130 and
    whose B values are 2^100, against the exact 2^-30; reported, not held
    to a limit (such terms are below 1e-9 of the scan's outputs).
+4. How mma.sync TF32 rounds its float32 sum: one m16n8k8 product per
+   case, d = c + sum of 8 products a_k . 1 with c = 1 and products of a
+   fraction of c's ulp (2^-23), the result in units of that ulp beside
+   the exact sum and its rounding to nearest. Reported, not held to a
+   limit: flash_attention.cu starts each chain of products from zero
+   because of what it shows.
 
 One JSON object per line, also written to --out; the last line names the
 card and its power limit. Without a CUDA device it exits 2.
@@ -98,6 +104,30 @@ __global__ void tf32_subnormal(float a, float b, float* out) {
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(av), "r"(0u), "r"(0u), "r"(0u), "r"(bv), "r"(bv));
   if (threadIdx.x == 0) out[0] = d[0];
+}
+
+// case i: d[0] of lane 0 (row 0, column 0) = c[i] + sum_k a[8 i + k] . 1
+// through one m16n8k8 TF32 product (lanes 0-3 hold row 0's k values)
+__global__ void tf32_accumulate(const float* a, const float* c, float* out) {
+  const int i = blockIdx.x, lane = threadIdx.x, t4 = lane & 3;
+  uint32_t av[4] = {0u, 0u, 0u, 0u};
+  if (lane < 4) {
+    av[0] = __float_as_uint(a[8 * i + t4]);
+    av[2] = __float_as_uint(a[8 * i + t4 + 4]);
+  }
+  const uint32_t one = __float_as_uint(1.0f);
+  float d[4] = {lane == 0 ? c[i] : 0.f, 0.f, 0.f, 0.f};
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(av[0]), "r"(av[1]), "r"(av[2]), "r"(av[3]), "r"(one), "r"(one));
+  if (lane == 0) out[i] = d[0];
+}
+
+extern "C" int tf32_accumulate_launch(int n, const float* a, const float* c,
+                                      float* out, void* stream) {
+  tf32_accumulate<<<n, 32, 0, static_cast<cudaStream_t>(stream)>>>(a, c, out);
+  return cudaGetLastError();
 }
 
 extern "C" int tf32_subnormal_launch(float a, float b, float* out,
@@ -185,6 +215,44 @@ def tf32_subnormal(lib, torch) -> dict:
             "subnormal_kept": got == a * b, "flushed": got == 0.0}
 
 
+# (name, c, the 8 products in units of c's ulp 2^-23); every value is a
+# TF32 value, so each product a . 1 is exact
+ACCUMULATE_CASES = (
+    ("one product of 0.75 ulp", 1.0, (0.75,)),
+    ("one product of 1.5 ulp", 1.0, (1.5,)),
+    ("one product of -0.1875 ulp", 1.0, (-0.1875,)),
+    ("eight products of 0.25 ulp", 1.0, (0.25,) * 8),
+    ("eight products of 0.125 ulp", 1.0, (0.125,) * 8),
+)
+
+
+def tf32_accumulate(lib, torch) -> dict:
+    """mma.sync TF32's float32 sum on ACCUMULATE_CASES: each result, the
+    exact sum and its rounding to nearest, less c, in units of c's ulp."""
+    fn = lib.tf32_accumulate_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    ulp = 2.0 ** -23
+    a = torch.tensor([[x * ulp for x in prods] + [0.0] * (8 - len(prods))
+                      for _, _, prods in ACCUMULATE_CASES],
+                     dtype=torch.float32, device="cuda")
+    c = torch.tensor([cc for _, cc, _ in ACCUMULATE_CASES],
+                     dtype=torch.float32, device="cuda")
+    out = torch.zeros(len(ACCUMULATE_CASES), device="cuda")
+    if fn(len(ACCUMULATE_CASES), a.data_ptr(), c.data_ptr(), out.data_ptr(),
+          torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("tf32_accumulate: launch failed")
+    cases = []
+    for (name, cc, prods), got in zip(ACCUMULATE_CASES, out.tolist()):
+        exact = cc + sum(prods) * ulp           # exact in float64
+        nearest = float(torch.tensor(exact, dtype=torch.float64).float())
+        cases.append({"case": name, "got": (got - cc) / ulp,
+                      "exact": (exact - cc) / ulp,
+                      "nearest": (nearest - cc) / ulp})
+    return {"cases": cases,
+            "rounds_to_nearest": all(x["got"] == x["nearest"] for x in cases)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/mma_probe.jsonl")
@@ -213,6 +281,7 @@ def main() -> int:
     rounding = tf32_round_check(lib, torch)
     emit({"phase": "tf32_rounding", "classes": rounding})
     emit({"phase": "tf32_subnormal", **tf32_subnormal(lib, torch)})
+    emit({"phase": "tf32_accumulate", **tf32_accumulate(lib, torch)})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

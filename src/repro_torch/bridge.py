@@ -115,10 +115,14 @@ def model_params_from_reference(values: Mapping, cfg: ModelConfig,
     the output of ``split(init_model(cfg, key))[0]`` with every leaf as a
     numpy array, whose ``groups`` leaves carry a leading ``n_groups`` axis.
     Layer l takes slice l // period of block l % period's leaves, for any
-    block the port runs (an attention block and its FFN, an RWKV time mix
-    and its channel mix). Every leaf takes the type that the port's
-    ``init_model`` gives it (cfg.param_dtype, or float32 for the RWKV
-    constants), on ``device``. A model the port does not run raises."""
+    block the port runs (an attention or Mamba block and its dense or MoE
+    FFN with its shared expert, an RWKV time mix and its channel mix; a
+    period of 8 for jamba). The top level carries ``embed``,
+    ``final_norm``, ``unembed`` and the vision frontend's
+    ``frontend_proj``. Every leaf takes the type that the port's
+    ``init_model`` gives it (cfg.param_dtype, or float32 for the RWKV and
+    Mamba constants), on ``device``. A model the port does not run
+    raises."""
     dev = resolve_device(device)
     # the port's own tree, shapes and types only
     like = init_model(cfg, torch.Generator(), device="meta")
@@ -131,7 +135,8 @@ def model_params_from_reference(values: Mapping, cfg: ModelConfig,
         return torch.tensor(a, device=dev).to(like.dtype)
 
     out = {k: tree(values[k], like[k])
-           for k in ("embed", "final_norm", "unembed") if k in values}
+           for k in ("embed", "final_norm", "unembed", "frontend_proj")
+           if k in values}
     out["layers"] = [tree(values["groups"][i % cfg.period], like["layers"][i],
                           i // cfg.period) for i in range(cfg.n_layers)]
     return out

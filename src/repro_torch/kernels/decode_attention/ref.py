@@ -22,7 +22,9 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     G = k_cache.shape[1]
     R = H // G
     qr = q.reshape(B, G, R, dh)
-    s = torch.einsum("bgrd,bgsd->bgrs", qr, k_cache).float()
+    # float32 scores (float64 for float64 inputs: the float64 witness)
+    s = torch.einsum("bgrd,bgsd->bgrs", qr, k_cache).to(
+        torch.promote_types(q.dtype, torch.float32))
     s = s / math.sqrt(dh)
     s = torch.where(valid.bool()[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)

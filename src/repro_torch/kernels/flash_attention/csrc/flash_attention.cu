@@ -45,16 +45,26 @@
 //     tile t + 1's copies are issued before tile t's products, one
 //     wait_group and one barrier a tile. Rows at or past S are zero-filled,
 //     so S need not be a multiple of the tile;
-//   * float32 operands are split once: each thread splits the k and v
-//     chunks it copied, as soon as its own copies land (before the tile's
-//     barrier), big in place and small into a second ring; each warp
-//     splits its q rows once, big into registers, small in place. Only P is
-//     split at every tile. rna is done in two integer operations (half a
-//     TF32 ulp added to the bits, the 13 low bits cleared): the
-//     instruction's rounding for every finite x (mma_probe.py compares
-//     the two over all 2^32 bit patterns), and cheaper than it;
+//   * k and v are split once: each thread splits the k and v chunks it
+//     copied, as soon as its own copies land (before the tile's barrier),
+//     big in place and small into a second ring. q stays as loaded and is
+//     split at every tile, as P is (P once a tile, into registers): q's
+//     big halves held in registers for the whole loop left too few for
+//     the sums below, and the kernel spilled. rna is done in two integer
+//     operations (half a TF32 ulp added to the bits, the 13 low bits
+//     cleared): the instruction's rounding for every finite x
+//     (mma_probe.py compares the two over all 2^32 bit patterns), and
+//     cheaper than it;
 //   * shared-memory rows are padded so that every fragment read is free of
 //     bank conflicts (below, per layout);
+//   * float32 sums are kept out of the tensor cores' accumulators, which
+//     truncate (mma_3xtf32): each q.k chain of 32 columns of dh and each
+//     p.v chain of a key tile's 32 keys (12 products) starts from zero and
+//     is added to its score or output with a float32 add. Kept in the
+//     accumulators over all dh and every key, the sums drifted to 8-10x
+//     float32's error against float64 on mixtral-8x22b's layer inputs
+//     (attention_witness.py); chip_smoke.py's attention phase holds the
+//     kernel to F64_RATIO times plain float32's;
 //   * scores, the running max and sum and the output stay in registers in
 //     the mma's accumulator layout; a row's max is reduced over the 4
 //     lanes that share it; the sum is kept per lane and reduced once at
@@ -171,7 +181,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a.b in 3xTF32, the small terms first
+// d += a.b in 3xTF32, the small terms first. The float32 sum inside
+// mma.sync is not rounded to nearest: the products are aligned to the
+// largest term (d's or a product's) with two bits below its last place,
+// each cut toward zero, and the sum cut toward zero again (mma_probe.py,
+// fact 4). A long sum kept in the accumulator therefore drifts toward
+// zero by up to an ulp of itself at every step. So the callers start each
+// short chain from zero (mma_3xtf32_zero: 32 columns of dh in q.k, a key
+// tile's 32 keys in p.v) and add it to their running float32 sums with an
+// ordinary add, rounded to nearest: the error is then about that of
+// float32's own sums.
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
                                            const uint32_t (&a_big)[4],
                                            const uint32_t (&a_small)[4],
@@ -313,6 +332,22 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kNT][4], float (&m)[2],
   l[1] = l[1] * corr[1] + rs[1];
 }
 
+// d = a.b in 3xTF32 from zero (the first product's C operand is 0: no
+// register to clear)
+__device__ __forceinline__ void mma_3xtf32_zero(float (&d)[4],
+                                                const uint32_t (&a_big)[4],
+                                                const uint32_t (&a_small)[4],
+                                                const uint32_t (&b_big)[2],
+                                                const uint32_t (&b_small)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a_small[0]), "r"(a_small[1]), "r"(a_small[2]), "r"(a_small[3]),
+        "r"(b_big[0]), "r"(b_big[1]), "f"(0.f));
+  mma_tf32(d, a_big, b_small[0], b_small[1]);
+  mma_tf32(d, a_big, b_big[0], b_big[1]);
+}
+
 // ---- the products, float32 (3xTF32) --------------------------------------
 
 // N operand values at `off` as big and small halves, from the big and
@@ -331,13 +366,16 @@ __device__ __forceinline__ void tf32_frag(const float* big, const float* small,
   }
 }
 
-// s (16 rows x kBK keys) = q . k^T. Qw is the small halves of the warp's 16
-// rows of q, the big ones in qbig. A lane reads rows g, g + 8 at columns
+// s (16 rows x kBK keys) = q . k^T. Qw is the warp's 16 rows of q, split
+// here as they are read. A lane reads rows g, g + 8 at columns
 // 16 c + 4 t4 .. + 3 of every 16.
 template <int DH, int kNT, int kLDQ, int kLDK>
 __device__ __forceinline__ void scores_f32(
-    float (&s)[kNT][4], const float* Qw, const uint32_t (&qbig)[2][DH / 16][4],
+    float (&s)[kNT][4], const float* Qw,
     const float* Ks, const float* Ksm, int g, int t4) {
+  // each chain: kP steps of 16 columns (see mma_3xtf32)
+  constexpr int kP = DH / 16 < 2 ? DH / 16 : 2;
+  float parts[kNT][4];
 #pragma unroll
   for (int c = 0; c < DH / 16; ++c) {
     uint32_t qb[2][4], qs[2][4];   // rows g, g + 8: columns 4 t4 .. + 3
@@ -346,15 +384,13 @@ __device__ __forceinline__ void scores_f32(
       float y[4];
       load_vec(Qw + (g + 8 * r) * kLDQ + 16 * c + 4 * t4, y);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        qb[r][e] = qbig[r][c][e];
-        qs[r][e] = __float_as_uint(y[e]);
-      }
+      for (int e = 0; e < 4; ++e) split(y[e], qb[r][e], qs[r][e]);
     }
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       uint32_t kb[4], ks[4];
       tf32_frag(Ks, Ksm, (8 * j + g) * kLDK + 16 * c + 4 * t4, kb, ks);
+      float (&part)[4] = parts[j];
 #pragma unroll
       for (int st = 0; st < 2; ++st) {
         // k slots t4, t4 + 4 take columns 4 t4 + 2 st and + 1
@@ -364,8 +400,12 @@ __device__ __forceinline__ void scores_f32(
                                 qs[0][2 * st + 1], qs[1][2 * st + 1]};
         const uint32_t bb[2] = {kb[2 * st], kb[2 * st + 1]};
         const uint32_t bs[2] = {ks[2 * st], ks[2 * st + 1]};
-        mma_3xtf32(s[j], ab, as, bb, bs);
+        if (st == 0 && c % kP == 0) mma_3xtf32_zero(part, ab, as, bb, bs);
+        else mma_3xtf32(part, ab, as, bb, bs);
       }
+      if (c % kP == kP - 1)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += part[e];
     }
   }
 }
@@ -377,17 +417,24 @@ __device__ __forceinline__ void pv_f32(float (&acc)[DH / 8][4],
                                        const float* Vs, const float* Vsm,
                                        int g, int t4) {
   constexpr int kW = DH / 8 < 4 ? DH / 8 : 4;
+  uint32_t pbig[kNT][4], psmall[kNT][4];
 #pragma unroll
   for (int st = 0; st < kNT; ++st) {
     // A operand values: rows g, g + 8 at k slots t4, t4 + 4, which hold
     // keys 2 t4, 2 t4 + 1: the score layout
     const float a[4] = {p[st][0], p[st][2], p[st][1], p[st][3]};
-    const int vrow0 = 8 * st + 2 * t4, vrow1 = vrow0 + 1;
-    uint32_t pb[4], ps[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split(a[e], pb[e], ps[e]);
+    for (int e = 0; e < 4; ++e) split(a[e], pbig[st][e], psmall[st][e]);
+  }
 #pragma unroll
-    for (int i = 0; i < DH / (8 * kW); ++i) {
+  for (int i = 0; i < DH / (8 * kW); ++i) {
+    // these 8 kW columns' part of the tile's p . v, from zero
+    float part[kW][4];
+#pragma unroll
+    for (int st = 0; st < kNT; ++st) {
+      const int vrow0 = 8 * st + 2 * t4, vrow1 = vrow0 + 1;
+      const uint32_t (&pb)[4] = pbig[st];
+      const uint32_t (&ps)[4] = psmall[st];
       uint32_t b0[kW], s0[kW], b1[kW], s1[kW];
       tf32_frag(Vs, Vsm, vrow0 * kLDV + 8 * kW * i + kW * g, b0, s0);
       tf32_frag(Vs, Vsm, vrow1 * kLDV + 8 * kW * i + kW * g, b1, s1);
@@ -395,9 +442,14 @@ __device__ __forceinline__ void pv_f32(float (&acc)[DH / 8][4],
       for (int u = 0; u < kW; ++u) {
         const uint32_t bb[2] = {b0[u], b1[u]};
         const uint32_t bs[2] = {s0[u], s1[u]};
-        mma_3xtf32(acc[kW * i + u], pb, ps, bb, bs);
+        if (st == 0) mma_3xtf32_zero(part[u], pb, ps, bb, bs);
+        else mma_3xtf32(part[u], pb, ps, bb, bs);
       }
     }
+#pragma unroll
+    for (int u = 0; u < kW; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[kW * i + u][e] += part[u][e];
   }
 }
 
@@ -517,28 +569,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   split_own(kt_begin);
   __syncthreads();
 
-  // float32: the lane's q values split once, big halves into registers and
-  // small halves in place (read back only by this lane)
-  uint32_t qbig[2][DH / 16][4];
-  if constexpr (kF32) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < DH / 16; ++c) {
-        float* at = reinterpret_cast<float*>(Qs) +
-                    (16 * warp + g + 8 * r) * Tr::kLDQ + 16 * c + 4 * t4;
-        float x[4], y[4];
-        load_vec(at, x);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          uint32_t lo;
-          split(x[e], qbig[r][c][e], lo);
-          y[e] = __uint_as_float(lo);
-        }
-        *reinterpret_cast<float4*>(at) = make_float4(y[0], y[1], y[2], y[3]);
-      }
-  }
-
   // bf16: the warp's q fragments, held in registers for the whole loop
   // (float32 reads its q from shared memory at every tile: registers)
   uint32_t qa[kF32 ? 1 : DH / 16][4];
@@ -587,7 +617,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     if constexpr (kF32)
       scores_f32<DH, kNT, Tr::kLDQ, Tr::kLDK>(s, Qs + 16 * warp * Tr::kLDQ,
-                                              qbig, Ks, small + at, g, t4);
+                                              Ks, small + at, g, t4);
     else
       scores_bf16<DH, kNT, Tr::kLDK>(s, qa, Ks, lane);
 

@@ -20,7 +20,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = k.shape[2]
     R = H // G
     qr = q.reshape(B, S, G, R, dh)
-    scores = torch.einsum("bsgrd,btgd->bgrst", qr, k).float()
+    # float32 scores (float64 for float64 inputs: the float64 witness)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qr, k).to(
+        torch.promote_types(q.dtype, torch.float32))
     scores = scores / math.sqrt(dh)
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]

@@ -3,10 +3,15 @@
 
 Where the reference jits each step with explicit shardings, these run
 eagerly under ``torch.inference_mode()`` (no autograd records; the caches
-are inference tensors). They serve every model ``repro_torch.models``
-runs: an attention model's KV caches are written in place, an RWKV model's
-state caches are replaced in the list the step returns. ``make_train_step``
-waits for the training slice.
+are inference tensors). They serve every registered config: the dense
+and MoE attention models (qwen1.5-4b, nemotron-4-15b, command-r-plus-104b,
+granite-34b, musicgen-medium, mixtral-8x22b, llama4-maverick-400b-a17b),
+the attention/Mamba hybrid (jamba-1.5-large-398b), RWKV6 (rwkv6-7b) and
+the vision model (internvl2-26b, whose prefill batch carries
+``frontend_embeds`` beside ``tokens``; the batch is passed on unchanged).
+KV caches are written in place; RWKV and Mamba state caches are replaced
+in the list the step returns. ``make_train_step`` waits for the training
+slice.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Model assembly: embedding -> the layers -> final norm -> logits — port of
-``repro.models.transformer`` for attention blocks with dense FFNs and for
-RWKV6 time-mix blocks with their channel mix.
+``repro.models.transformer``: attention and Mamba blocks with dense or MoE
+FFNs, RWKV6 time-mix blocks with their channel mix, and the vision
+frontend's projection of precomputed patch embeddings.
 
 Parameters are nested dictionaries with the reference's names and shapes,
 except that the reference's stacked ``groups`` (one leading ``n_groups``
@@ -8,13 +9,14 @@ axis per leaf, scanned with ``lax.scan``) become ``layers``: a list of
 ``cfg.n_layers`` per-layer dictionaries walked by a plain Python loop
 (layer l has the kinds ``cfg.blocks_in_group[l % cfg.period]``). Caches are
 a list of per-layer caches: a ``KVCache`` (written in place) for an
-attention layer, an ``RWKVCache`` (replaced in the list) for an RWKV layer.
+attention layer, an ``RWKVCache`` or a ``MambaCache`` (replaced in the
+list) for an RWKV or a Mamba layer.
 
 Three entry points: ``forward`` (teacher forcing), ``prefill`` (forward +
 cache build), ``decode_step`` (one token). Each takes ``use_kernel`` (see
-``repro_torch.models.attention`` and ``repro_torch.models.rwkv``).
-``loss_fn`` waits for the training slice; Mamba and MoE blocks and the
-vision frontend raise.
+``repro_torch.models.attention`` and ``repro_torch.models.rwkv``; the MoE
+FFN and the Mamba block have no kernel). ``loss_fn`` waits for the
+training slice.
 """
 from __future__ import annotations
 
@@ -26,18 +28,23 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from . import attention as attn_mod
+from . import mamba as mamba_mod
+from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .attention import KVCache
 from .layers import (embed, ffn, init_embedding, init_ffn, init_rmsnorm,
                      rmsnorm, rope_tables, unembed)
+from .mamba import MambaCache
+from .param import dense_init
 from .rwkv import RWKVCache
 
-NOT_PORTED = ("not ported yet: repro_torch runs attention blocks with dense "
-              "FFNs and RWKV6 blocks with their channel mix; MoE FFNs, Mamba "
-              "blocks and the vision frontend are still to port (see "
-              "ROADMAP.md)")
+NOT_PORTED = ("not ported: repro_torch serves attention and Mamba blocks "
+              "with dense or MoE FFNs and RWKV6 blocks with their channel "
+              "mix, the layer kinds of the registered configs; training "
+              "(loss_fn) is still to port (see ROADMAP.md)")
 # the (block, ffn) kinds a layer may have
-PORTED_KINDS = {("attn", "dense"), ("rwkv", "rwkv_cm")}
+PORTED_KINDS = {("attn", "dense"), ("attn", "moe"), ("mamba", "dense"),
+                ("mamba", "moe"), ("rwkv", "rwkv_cm")}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -53,15 +60,20 @@ def layer_kinds(cfg: ModelConfig):
 
 def _check_ported(cfg: ModelConfig) -> None:
     kinds = set(layer_kinds(cfg))
-    if cfg.frontend == "vision" or kinds - PORTED_KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: {sorted(kinds)}, frontend {cfg.frontend!r}: "
-            + NOT_PORTED)
+    if kinds - PORTED_KINDS:
+        raise NotImplementedError(f"{cfg.name}: {sorted(kinds)}: "
+                                  + NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+
+_INIT_BLOCK = {"attn": attn_mod.init_attention, "mamba": mamba_mod.init_mamba,
+               "rwkv": rwkv_mod.init_rwkv_time_mix}
+_INIT_FFN = {"moe": moe_mod.init_moe,
+             "rwkv_cm": rwkv_mod.init_rwkv_channel_mix}
+
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device: DeviceLike = None):
@@ -74,12 +86,10 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     params = {"embed": init_embedding(generator, cfg.vocab_size, D, dtype,
                                       dev)}
     params["layers"] = []
-    for blk, _ in layer_kinds(cfg):
-        attn = blk == "attn"
-        mix = (attn_mod.init_attention if attn
-               else rwkv_mod.init_rwkv_time_mix)(generator, cfg, dtype, dev)
-        ffn_p = (init_ffn(generator, cfg, cfg.d_ff, dtype, dev) if attn
-                 else rwkv_mod.init_rwkv_channel_mix(generator, cfg, dtype,
+    for blk, fk in layer_kinds(cfg):
+        mix = _INIT_BLOCK[blk](generator, cfg, dtype, dev)
+        ffn_p = (init_ffn(generator, cfg, cfg.d_ff, dtype, dev)
+                 if fk == "dense" else _INIT_FFN[fk](generator, cfg, dtype,
                                                      dev))
         params["layers"].append({"norm1": init_rmsnorm(D, dtype, dev),
                                  "mix": mix,
@@ -89,6 +99,9 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(generator, cfg.vocab_size, D,
                                            dtype, dev)
+    if cfg.frontend == "vision":
+        params["frontend_proj"] = dense_init(
+            generator, (cfg.d_frontend, D), dtype, dev)
     return params
 
 
@@ -96,14 +109,15 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
                 device: DeviceLike = None) -> List:
     """One zeroed cache per layer: a KVCache for an attention layer (s_max
     is the KV capacity; sliding-window archs get min(s_max, window) ring
-    buffers), an RWKVCache for an RWKV layer (its size does not depend on
-    s_max)."""
+    buffers), an RWKVCache or a MambaCache for an RWKV or a Mamba layer
+    (their size does not depend on s_max)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     cap = min(s_max, cfg.window) if cfg.window else s_max
+    state = {"rwkv": RWKVCache, "mamba": MambaCache}
     return [KVCache.zeros(batch, cfg.n_kv_heads, cap, cfg.d_head, dtype, dev)
-            if blk == "attn" else RWKVCache.zeros(batch, cfg, dtype, dev)
+            if blk == "attn" else state[blk].zeros(batch, cfg, dtype, dev)
             for blk, _ in layer_kinds(cfg)]
 
 
@@ -116,6 +130,8 @@ def _apply_block(p, cfg, kind, x, positions, mode, cache, rope, pos=None,
     """Returns (y, cache)."""
     if kind == "rwkv":
         return rwkv_mod.rwkv_time_mix(p, cfg, x, cache, use_kernel=use_kernel)
+    if kind == "mamba":
+        return mamba_mod.mamba_block(p, cfg, x, cache)
     if kind != "attn":
         raise NotImplementedError(f"{kind} blocks: " + NOT_PORTED)
     if mode == "train":
@@ -129,11 +145,17 @@ def _apply_block(p, cfg, kind, x, positions, mode, cache, rope, pos=None,
 
 
 def _apply_ffn(p, cfg, kind, x, cache):
-    """Returns (y, cache): the RWKV channel mix threads the cache."""
+    """Returns (y, aux, cache): aux is the MoE's load-balancing loss, a
+    float32 scalar tensor (0.0 for the others, a Python float: no launch);
+    the RWKV channel mix threads the cache."""
+    if kind == "moe":
+        y, aux = moe_mod.moe_ffn(p, cfg, x)
+        return y, aux, cache
     if kind == "dense":
-        return ffn(p, cfg, x), cache
+        return ffn(p, cfg, x), 0.0, cache
     if kind == "rwkv_cm":
-        return rwkv_mod.rwkv_channel_mix(p, cfg, x, cache)
+        y, cache = rwkv_mod.rwkv_channel_mix(p, cfg, x, cache)
+        return y, 0.0, cache
     raise NotImplementedError(f"{kind} FFNs: " + NOT_PORTED)
 
 
@@ -150,14 +172,17 @@ def _run_layers(cfg, params, x, positions, mode, caches=None, pos=None,
     in decode, the validity vector ``valid``) are made once for all layers,
     and only if some layer is attention.
 
-    ``on_layer``, if given, is called after each layer's block (attention
-    or time mix) as ``on_layer(i, y, cache, rerun)``: ``y`` and ``cache``
+    Returns (x, aux): aux sums the MoE layers' auxiliary losses.
+
+    ``on_layer``, if given, is called after each layer's block (attention,
+    time mix or Mamba) as ``on_layer(i, y, cache, rerun)``: ``y`` and ``cache``
     are what the block returned, and ``rerun(use_kernel)`` runs the same
     block again on the same input and cache with another kernel switch and
     returns its (y, cache). (A rerun attention block writes its KV cache
     slots again, with the same values.)"""
     rope = (rope_tables(positions, cfg.d_head, cfg.rope_theta)
             if _first_attention(cfg) is not None else None)
+    aux = 0.0
     for i, (layer, (blk, fk)) in enumerate(zip(params["layers"],
                                                layer_kinds(cfg))):
         cache_in = caches[i] if caches is not None else None
@@ -169,16 +194,25 @@ def _run_layers(cfg, params, x, positions, mode, caches=None, pos=None,
             on_layer(i, y, cache, block)
         x = x + y
         h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
-        y, cache = _apply_ffn(layer["ffn"], cfg, fk, h, cache)
+        y, layer_aux, cache = _apply_ffn(layer["ffn"], cfg, fk, h, cache)
         x = x + y
+        aux = aux + layer_aux
         if caches is not None:
             caches[i] = cache
-    return x
+    return x, aux
 
 
 def _embed_inputs(cfg, params, batch):
+    """The token embeddings; with the vision frontend, the first
+    n_frontend_tokens positions replaced by batch["frontend_embeds"]
+    (B, n_frontend_tokens, d_frontend) projected by frontend_proj."""
     _check_ported(cfg)
-    return embed(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision":
+        fe = batch["frontend_embeds"].to(x.dtype)
+        proj = fe @ params["frontend_proj"]
+        x = torch.cat([proj, x[:, cfg.n_frontend_tokens:, :]], dim=1)
+    return x.to(torch_dtype(cfg.dtype))
 
 
 def _logits(cfg, params, x):
@@ -188,14 +222,15 @@ def _logits(cfg, params, x):
 
 def forward(cfg: ModelConfig, params, batch,
             use_kernel: Optional[bool] = None, on_layer=None):
-    """Teacher-forcing logits (B, S, V) and the auxiliary loss (0: no MoE).
-    batch: tokens (B, S) integer. ``on_layer``: see ``_run_layers``."""
+    """Teacher-forcing logits (B, S, V) and the auxiliary loss, the sum of
+    the MoE layers' (0 without MoE). batch: tokens (B, S) integer [+
+    frontend_embeds]. ``on_layer``: see ``_run_layers``."""
     x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_layers(cfg, params, x, positions, "train", use_kernel=use_kernel,
-                    on_layer=on_layer)
-    return (_logits(cfg, params, x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    x, aux = _run_layers(cfg, params, x, positions, "train",
+                         use_kernel=use_kernel, on_layer=on_layer)
+    return _logits(cfg, params, x), torch.as_tensor(
+        aux, dtype=torch.float32, device=x.device)
 
 
 def prefill(cfg: ModelConfig, params, batch, s_max: int,
@@ -206,8 +241,8 @@ def prefill(cfg: ModelConfig, params, batch, s_max: int,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     caches = init_caches(cfg, B, s_max, device=x.device)
-    x = _run_layers(cfg, params, x, positions, "prefill", caches,
-                    use_kernel=use_kernel, on_layer=on_layer)
+    x, _ = _run_layers(cfg, params, x, positions, "prefill", caches,
+                       use_kernel=use_kernel, on_layer=on_layer)
     return _logits(cfg, params, x[:, -1:, :])[:, 0], caches
 
 
@@ -225,6 +260,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int,
     first = _first_attention(cfg)
     valid = (None if first is None else attn_mod.decode_valid(
         cfg, pos, caches[first].k.shape[2], x.device).to(torch.int32))
-    x = _run_layers(cfg, params, x, positions, "decode", caches, pos=pos,
-                    valid=valid, use_kernel=use_kernel, on_layer=on_layer)
+    x, _ = _run_layers(cfg, params, x, positions, "decode", caches,
+                       pos=pos, valid=valid, use_kernel=use_kernel,
+                       on_layer=on_layer)
     return _logits(cfg, params, x)[:, 0], caches

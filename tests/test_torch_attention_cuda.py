@@ -90,6 +90,28 @@ def test_flash_kernel_float32_keeps_2e4_at_wide_scores(cuda, B, S, H, G, dh,
     _close(out, want, torch.float32)
 
 
+@pytest.mark.parametrize("B,S,H,G,dh,window", [
+    (1, 1024, 48, 8, 128, 4096),    # mixtral-8x22b's heads and window
+    (2, 1024, 20, 20, 128, 256),
+    (2, 700, 12, 4, 64, 0),
+])
+def test_flash_kernel_float32_rounds_as_float32_does(cuda, B, S, H, G, dh,
+                                                     window):
+    """Against the plain version in float64, the float32 kernel's rms error
+    is at most twice the plain float32 version's: its sums round as
+    float32's do. (Long sums kept in the tensor cores' accumulators, which
+    truncate, reached 8-10 times it at mixtral-8x22b's shape.)"""
+    gen = torch.Generator(device=cuda).manual_seed(S + H + window)
+    q = _rand(gen, (B, S, H, dh), torch.float32, cuda)
+    k, v = (_rand(gen, (B, S, G, dh), torch.float32, cuda) for _ in range(2))
+    exact = fref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                     window)
+    rms = lambda t: float(t.pow(2).mean().sqrt())
+    kern = rms(fops.flash_attention(q, k, v, window).double() - exact)
+    plain = rms(fref.flash_attention_ref(q, k, v, window).double() - exact)
+    assert kern <= 2 * plain, (kern / rms(exact), plain / rms(exact))
+
+
 @pytest.mark.parametrize("B,S,H,G,dh,valid,dtype", [
     (8, 1056, 20, 20, 128, "all", torch.float32),     # qwen1.5-4b decode
     (8, 1056, 20, 20, 128, "prefix:700", torch.float32),

@@ -52,7 +52,8 @@ def test_no_jax_or_repro_import_in_source():
         re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "mma_probe.py",
-                                          ROOT / "bnb_spread.py"]
+                                          ROOT / "bnb_spread.py",
+                                          ROOT / "attention_witness.py"]
     assert len(files) > 20
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]

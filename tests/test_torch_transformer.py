@@ -191,10 +191,15 @@ def test_layers_follow_the_repeat_unit():
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "jamba-1.5-large-398b",
                                   "internvl2-26b"])
 def test_unported_blocks_raise(arch):
+    """These families (MoE, Mamba, the vision frontend) build now; a layer
+    whose (block, FFN) pairing no registered config has still raises, and
+    the message names what is left to port."""
     cfg = tget(arch).reduced()
+    tm.init_model(cfg, torch.Generator(), "cpu")
+    tm.init_caches(cfg, 1, 8, device="cpu")
+    odd = cfg.scaled(ffn_pattern=("rwkv_cm",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_model(cfg, torch.Generator(), "cpu")
+        tm.init_model(odd, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_caches(cfg, 1, 8, device="cpu")
-    for feature in ("MoE", "Mamba", "vision frontend"):
-        assert feature in NOT_PORTED
+        tm.init_caches(odd, 1, 8, device="cpu")
+    assert "training" in NOT_PORTED
