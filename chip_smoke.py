@@ -64,9 +64,11 @@ Phases, one JSON object per line:
              farther from float64 than the plain version's (or within the
              tolerance), and the kernel replay commits the float64
              replay's counts for every tenant at every tick.
-5. profile — torch.profiler over one warm tick of the same fleet: device
-             busy share, the kernels that take the time, and the device
-             time and launches of the alloc_objective kernel.
+5. profile — torch.profiler over one warm tick of the same fleet, cut to
+             PROFILE_STEPS = 30 PGD iterations (the tick runs 340; the
+             profiler's own processing of the whole tick took ~73 s):
+             device busy share, the kernels that take the time, and the
+             device time and launches of the alloc_objective kernel.
    kernels also checks and times this slice's shapes at n = 1880: the
              single-problem entry at S = 12 and 1 (a branch-and-bound
              node's ladder and gradient) and S = 48 and 4 (the sequential
@@ -175,8 +177,9 @@ Phases, one JSON object per line:
              with its bound.
    serve_alloc — the online allocation service (``repro_torch.serve``):
              the demo session of ``python -m repro_torch.serve`` (full
-             catalog, 8 lanes, 24 ticks, flash-crowd demand, a departure
-             at tick 12) (a) with the kernel and plain, no deadline: the
+             catalog, SERVE_LANES = 4 of its 8 lanes, 24 ticks, flash-crowd
+             demand, a departure at tick 12) (a) with the kernel and
+             plain, no deadline: the
              same decisions, each objective within 0.05 and the sum within
              2e-2, equal feasibility and staleness; p50 and p99 tick
              latency, cold-join and warm-tick seconds, launches by entry
@@ -236,18 +239,20 @@ Phases, one JSON object per line:
              version (the chunked closed form, on the float32 values of the
              same inputs; rtol = atol = 1e-3 in float32, 2e-2 in bfloat16),
              every case with a nonzero bonus u and state s0: rwkv6-7b's
-             prefill shape (timed for the kernels line; also the kernel's
-             and the plain version's rms distance from the chunked form in
-             float64), its decode shape (S = 1, chunk 1: the kernel's
-             decode form), a ragged S = 1056, decays in [0.02, 0.5] (the
-             clamp at e^-60 bites), head size 16 with chunk 16, and
+             prefill shape (timed for the kernels line), its decode shape
+             (S = 1, chunk 1: the kernel's decode form), a ragged S =
+             1056, decays in [0.02, 0.5] (the clamp at e^-60 bites), head
+             size 16 with chunk 16, and
              bfloat16; kernel and plain device ms over rotating input
              copies, and the bound: bytes at 3.35 TB/s or operations on
              the kernel's route, whichever is larger (the prefill form's
              products as 3xTF32, three TF32 products for each at
              495 TFLOP/s, with the FP32-pipe figure at 67 TFLOP/s beside
              it; the decode form forms no products). PyTorch has no one
-             call that computes WKV, so there is no library time.
+             call that computes WKV, so there is no library time. Every
+             float32 prefill case (S > 1) is also held to the chunked form
+             in float64: the kernel's rms error, of y and of the final
+             state, within F64_RATIO times the plain version's.
 10. serve_rwkv — the third main path: rwkv6-7b at full width and depth (32
              layers, d_model 4096, float32, random weights from --seed,
              with u drawn from N(0, 0.5) and w_base spread over [-6, -1]
@@ -305,6 +310,24 @@ Phases, one JSON object per line:
              plain (launch.routes.check_routes; 2e-4 prefill, 2e-3 decode, 3e-3 for mixtral with its
              window cut to 32 so the ring wraps), launches counted per
              attention and RWKV layer, none on the plain route.
+14. train  — the fifth main path: training on the plain route (the
+             kernels have no backward), float32, after every earlier
+             phase's memory is freed (``train_checks``): (a) qwen1.5-4b at
+             full width and depth (40 layers, 3.95 B parameters, remat
+             "full") through ``repro_torch.launch.train.train``, the
+             launcher's loop: 3 steps of 8 x 128 (the reference
+             launcher's), one more under torch.profiler (busy share, top
+             operations), one of 1 x 2048 (past 1024 the attention is
+             ``_chunked_flash`` under remat); per step loss, grad norm,
+             lr, seconds, peak GiB and kernel launches; fails unless every
+             loss and grad norm is finite, every parameter leaf moved,
+             step 0's loss equals ``loss_fn`` under no_grad within 1e-5
+             relative and no kernel launched; (b) 2 of its layers at full
+             width, one step in float32 and in float64 (``float64_model``):
+             loss, every gradient leaf, m and v within TWIN_TOL; (c)
+             ``_chunked_flash`` against ``_sdpa`` at (1, 2048, 20/20, 128),
+             outputs and q/k/v gradients at 2e-4, both against float64;
+             (d) every kernel wrapper refuses operands that require grad.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -317,6 +340,7 @@ import collections
 import contextlib
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -378,9 +402,14 @@ SEQUENTIAL_RUNS = (("sequential", "sequential", "kernel"),
                    ("vmap", "batched", "vmap"),
                    ("kernel", "batched", "kernel"))
 SEQUENTIAL_TENANTS = 2        # the first two (diurnal, flash_crowd)
+# the profiled warm tick's PGD iterations (the tick runs 340 to converge;
+# torch.profiler's processing grows with the launches, ~360 an iteration)
+PROFILE_STEPS = 30
 # the serving demo of ``python -m repro_torch.serve`` (lanes, ticks, base
-# demand) and the degradation sweep's budgets (benchmarks/serve_bench.py)
-SERVE_LANES, SERVE_TICKS = 8, 24
+# demand) and the degradation sweep's budgets (benchmarks/serve_bench.py);
+# 4 of the demo's 8 lanes since the train phase joined (each lane's cold
+# join took ~5 s of every session, three sessions)
+SERVE_LANES, SERVE_TICKS = 4, 24
 HEALTH_LANES = 2              # the health-monitored session's lanes
 SERVE_BASE = [8.0, 16.0, 4.0, 100.0]
 DEGRADATION_BUDGETS = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 64.0)
@@ -456,6 +485,15 @@ ULP_STEPS = (1, -1)
 # MPC_PROFILE_STEPS bounds the profiled warm step (torch.profiler's
 # event processing grows with its launches)
 MPC_HORIZON, MPC_TICKS, MPC_PROFILE_STEPS = 8, 3, 60
+# the train phase: qwen1.5-4b at full width and depth, the reference
+# launcher's batch and sequence (8 x 128) for TRAIN_STEPS steps, then one
+# step of 1 x TRAIN_LONG_SEQ (past 1024: _chunked_flash under remat); the
+# float64 twin at TWIN_LAYERS of its 40 layers, held at TWIN_TOL (max
+# |error| of a leaf over its largest float64 element; v squares the
+# gradient, so twice the gradient's)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1.5-4b", 8, 128, 3
+TRAIN_LONG_SEQ, TRAIN_LR, TWIN_LAYERS = 2048, 1e-3, 2
+TWIN_TOL = {"loss": 1e-5, "grad": 2e-4, "m": 2e-4, "v": 4e-4}
 # the bucketed fleet: tenants spread over instances[::k] of the catalog
 BUCKET_TENANTS, BUCKET_STRIDES = 32, (1, 2, 8, 40)
 # base demands of examples/fleet_replay.py's four tenants, by trace kind
@@ -944,7 +982,9 @@ def rwkv_bound(B, S, H, hs, chunk, itemsize) -> dict:
 
 def rwkv_checks(seed: int, dev):
     """The rwkv6_scan kernel against its plain version at RWKV_CASES, timed
-    beside it over rotating input copies. Returns (checks, {kernels-line
+    beside it over rotating input copies; every float32 prefill case also
+    against the chunked form in float64 (y and the final state, each
+    within F64_RATIO times the plain version's rms error). Returns (checks, {kernels-line
     name: the record of its serving shape})."""
     import torch
     from repro_torch.kernels.rwkv6_scan import ops as sops
@@ -976,24 +1016,22 @@ def rwkv_checks(seed: int, dev):
                       torch.cat([y.float().flatten(), sf.flatten()]),
                       torch.cat([yr.flatten(), sr.flatten()]),
                       RWKV_TOL[dtype], RWKV_TOL[dtype])
-        if case == "rwkv-prefill":
-            # the kernel, the plain version and the plain version in
-            # chunks of 32 (the same function, rounded otherwise) against
-            # the chunked form in float64, and the kernel and chunks of 32
-            # against the plain version: rms of the difference over the rms
-            # of y
-            y64, _ = sref.rwkv6_scan_chunked(
+        if dtype == "float32" and S > 1:
+            # the prefill form's 3xTF32 chains against the chunked form in
+            # float64, beside plain float32's: y and the final state
+            y64, s64 = sref.rwkv6_scan_chunked(
                 *(t.double() for t in (r, k, v, w, u, s0)), chunk,
                 compute_dtype=torch.float64)
-            y32, _ = sref.rwkv6_scan_chunked(r.float(), k.float(), v.float(),
-                                             w.float(), u, s0, 32)
-            rms = lambda t: t.double().pow(2).mean().sqrt().item()
-            rec["vs_float64"] = {"kernel": rms(y - y64) / rms(y64),
-                                 "plain": rms(yr - y64) / rms(y64),
-                                 "plain_chunk32": rms(y32 - y64) / rms(y64)}
-            rec["vs_plain_rms"] = {"kernel": rms(y - yr) / rms(y64),
-                                   "plain_chunk32": rms(y32 - yr) / rms(y64)}
-            del y64, y32
+            rec["vs_float64"] = {
+                "y": float64_errors(y, yr, lambda: y64),
+                "state": float64_errors(sf, sr, lambda: s64)}
+            del y64, s64
+            worst = max(e["kernel_over_plain"]
+                        for e in rec["vs_float64"].values())
+            if not worst <= F64_RATIO:
+                raise AssertionError(f"rwkv6_scan {case}: farther from "
+                                     f"float64 than float32 rounds: "
+                                     f"{rec['vs_float64']}")
         kern_in, plain_in = rotation(sets), rotation(sets)
         kern = lambda: sops.rwkv6_scan(*kern_in(), chunk)
         plain = lambda: sref.rwkv6_scan_chunked(
@@ -1641,6 +1679,298 @@ def families_checks(seed: int, dev) -> dict:
         out[arch]["seconds"] = time.perf_counter() - t0
     return {"B": routes.BATCH, "prompt": routes.PROMPT,
             "steps": routes.STEPS, "configs": out}
+
+
+@contextlib.contextmanager
+def float64_model():
+    """Inside it the model code computes in float64 where its tensors are
+    float64: ``Tensor.float()`` leaves a float64 tensor as it is (rmsnorm,
+    RoPE, the scores, the loss's logits and AdamW all widen with it) and
+    the activation type "float32" reads as float64. Tensors made with an
+    explicit float32 type stay float32 (the RoPE tables, the aux-loss zero,
+    AdamW's bias corrections and lr): shared by both runs, or rounded once."""
+    import torch
+    import repro_torch.models.transformer as tmod
+    widen, name_to_dtype = torch.Tensor.float, tmod.torch_dtype
+    torch.Tensor.float = lambda self, *a, **kw: (
+        self if self.dtype == torch.float64 else widen(self, *a, **kw))
+    tmod.torch_dtype = lambda name: (torch.float64 if name == "float32"
+                                     else name_to_dtype(name))
+    try:
+        yield
+    finally:
+        torch.Tensor.float, tmod.torch_dtype = widen, name_to_dtype
+
+
+def _train_fingerprint(params) -> list:
+    """Up to 4096 evenly strided elements of every parameter leaf."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    out = []
+    for p in tree_leaves(params):
+        flat = p.detach().reshape(-1)
+        out.append(flat[::max(1, flat.numel() // 4096)].clone())
+    return out
+
+
+def _rel_errors(got, want) -> dict:
+    """Per leaf, max |got - want| over max |want|; the largest, and its
+    leaf."""
+    errs = [float((g.double() - w).abs().max() / w.abs().max().clamp_min(
+        1e-300)) for g, w in zip(got, want)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return {"max_rel": errs[worst], "leaf": worst, "leaves": len(errs)}
+
+
+def train_checks(seed: int, dev, kernel_ops) -> dict:
+    """The training path on the card (plain route, autograd, AdamW in
+    place), float32:
+
+    (a) TRAIN_ARCH at full width and depth through
+        ``repro_torch.launch.train.train`` (the launcher's loop and
+        settings): TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ (the
+        reference launcher's batch and length), one more under
+        torch.profiler, then one of 1 x TRAIN_LONG_SEQ, where the full
+        depth runs _chunked_flash under remat. Per step the loss, grad
+        norm, lr, seconds, peak GiB and kernel launches. Raises unless
+        every loss and grad norm is finite, every parameter leaf moved,
+        step 0's loss equals loss_fn under no_grad within 1e-5 relative,
+        and no kernel launched (the LAUNCHES counters).
+    (b) TRAIN_ARCH at full width, TWIN_LAYERS layers, TRAIN_BATCH x
+        TRAIN_SEQ: loss_fn, its gradient and one AdamW step in float32 and
+        the same code in float64 (``float64_model``); the loss, every
+        gradient leaf, m and v held at TWIN_TOL.
+    (c) _chunked_flash against _sdpa at (1, TRAIN_LONG_SEQ, H = G = 20,
+        dh 128): outputs and q/k/v gradients at ATTN_TOL, and both
+        against _sdpa in float64 (rms error over the float64 rms).
+    (d) every kernel wrapper asked to launch on operands that require
+        grad raises (the kernels have no backward)."""
+    import gc
+    import torch
+    import repro_torch.models.attention as tattn
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.alloc_objective import ops as aops
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6_scan import ops as sops
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.optim import adamw
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    def launches():
+        return sum(v for o in kernel_ops for v in o.LAUNCHES.values())
+
+    def as_batch(b):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    rec = {}
+    # ---- (a) full width and depth through the launcher's loop -----------
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    n_params = sum(p.numel() for p in adamw.tree_leaves(params))
+    before = _train_fingerprint(params)
+    first = as_batch(SyntheticLM(DataConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)).global_batch(0))
+    with torch.no_grad():
+        loss0 = float(loss_fn(cfg, params, first)[0])
+    del first
+    for o in kernel_ops:
+        o.reset_launches()
+    per_step = []
+
+    def on_step(step, metrics, seconds):
+        per_step.append({"launches": launches(),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        torch.cuda.reset_peak_memory_stats()
+
+    total = TRAIN_STEPS + 2
+    params, state, hist = launch.train(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        lr=TRAIN_LR, device=dev, seed=seed, params=params,
+        total_steps=total, ckpt_every=total + 1, log=lambda *_: None,
+        on_step=on_step)
+    # one more step of the same shape under the profiler
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=20,
+                                total_steps=total)
+    step_fn = make_train_step(cfg, opt_cfg)
+    prof_batch = as_batch(SyntheticLM(DataConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)).global_batch(
+            TRAIN_STEPS))
+    out = []
+    profile = profile_once(lambda: out.append(step_fn(params, state,
+                                                      prof_batch)), top_n=8)
+    params, state, metrics = out.pop()
+    profile.update(step=TRAIN_STEPS, loss=float(metrics["loss"]),
+                   grad_norm=float(metrics["grad_norm"]),
+                   launches=launches(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del prof_batch, metrics
+    torch.cuda.reset_peak_memory_stats()
+    params, state, long_hist = launch.train(
+        cfg, steps=1, batch=1, seq=TRAIN_LONG_SEQ, lr=TRAIN_LR, device=dev,
+        seed=seed, params=params, opt_state=state,
+        first_step=TRAIN_STEPS + 1, total_steps=total,
+        ckpt_every=total + 1, log=lambda *_: None, on_step=on_step)
+    hist = [dict(h, shape=[TRAIN_BATCH, TRAIN_SEQ]) for h in hist] + [
+        dict(h, shape=[1, TRAIN_LONG_SEQ]) for h in long_hist]
+    for h, extra in zip(hist, per_step):
+        h.update(extra)
+    moved = [bool((a != b).any()) for a, b in
+             zip(before, _train_fingerprint(params))]
+    rec["full"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": n_params, "remat": cfg.remat, "loss_chunk": cfg.loss_chunk,
+        "steps": hist, "profiled_step": profile,
+        "step0_loss_no_grad": loss0,
+        "step0_rel_diff": abs(hist[0]["loss"] - loss0) / abs(loss0),
+        "leaves": len(moved), "leaves_moved": sum(moved),
+        "kernel_launches": launches()}
+    del params, state, before, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = rec["full"]
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist) and math.isfinite(profile["loss"])
+    if not (finite and full["leaves_moved"] == full["leaves"]
+            and full["step0_rel_diff"] <= 1e-5
+            and full["kernel_launches"] == 0
+            and all(h["launches"] == 0 for h in hist)):
+        raise AssertionError(f"train: the full-depth run failed its gates: "
+                             f"{ {k: v for k, v in full.items() if k not in ('steps', 'profiled_step')} } "
+                             f"finite={finite}")
+
+    # ---- (b) a shallower step held to float64 ----------------------------
+    twin_cfg = cfg.scaled(n_layers=TWIN_LAYERS)
+    base = init_model(twin_cfg, torch.Generator(device=dev).manual_seed(
+        seed + 1), dev)
+    batch = as_batch(SyntheticLM(DataConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)).global_batch(0))
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=20, total_steps=10)
+
+    def one_step(params, moment_dtype):
+        leaves = [p.requires_grad_(True) for p in adamw.tree_leaves(params)]
+        loss, _ = loss_fn(twin_cfg, params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        kept = [g.detach().clone() for g in grads]
+        slot = iter(grads)
+        tree = adamw.tree_map(lambda _: next(slot), params)
+        del grads, slot
+        zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype,
+                                      device=p.device)
+        state = adamw.AdamWState(torch.zeros((), dtype=torch.int32,
+                                             device=dev),
+                                 adamw.tree_map(zeros, params),
+                                 adamw.tree_map(zeros, params))
+        _, state, _ = adamw.update(opt_cfg, tree, state, params)
+        return (float(loss.detach()), kept, adamw.tree_leaves(state.m),
+                adamw.tree_leaves(state.v))
+
+    t32 = one_step(adamw.tree_map(lambda p: p.detach().clone(), base),
+                   torch.float32)
+    with float64_model():
+        t64 = one_step(adamw.tree_map(lambda p: p.detach().double(), base),
+                       torch.float64)
+    del base, batch
+    twin = {"layers": TWIN_LAYERS, "tol": TWIN_TOL,
+            "loss_32": t32[0], "loss_64": t64[0],
+            "loss_rel": abs(t32[0] - t64[0]) / abs(t64[0]),
+            "grad": _rel_errors(t32[1], t64[1]),
+            "m": _rel_errors(t32[2], t64[2]),
+            "v": _rel_errors(t32[3], t64[3])}
+    rec["float64_twin"] = twin
+    del t32, t64
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (twin["loss_rel"] <= TWIN_TOL["loss"]
+            and all(twin[k]["max_rel"] <= TWIN_TOL[k]
+                    for k in ("grad", "m", "v"))):
+        raise AssertionError(f"train: float32 step farther from float64 "
+                             f"than TWIN_TOL: {twin}")
+
+    # ---- (c) _chunked_flash against _sdpa -------------------------------
+    H, dh, S = cfg.n_heads, cfg.d_head, TRAIN_LONG_SEQ
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    q, k, v, dy = (torch.randn((1, S, H, dh), generator=gen, device=dev)
+                   for _ in range(4))
+    mask = tattn.causal_mask(S, S, 0, 0, dev)
+
+    def attend(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves,
+                                                         dy.to(dtype)))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunked = attend(lambda q, k, v: tattn._chunked_flash(q, k, v, 0),
+                     torch.float32)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    sdpa = attend(lambda q, k, v: tattn._sdpa(q, k, v, mask), torch.float32)
+    with float64_model():
+        exact = attend(lambda q, k, v: tattn._sdpa(q, k, v, mask),
+                       torch.float64)
+    rms = lambda t: float(t.double().pow(2).mean().sqrt())
+    names = ("out", "dq", "dk", "dv")
+    flash = {"shape": [1, S, H, H, dh], "tol": ATTN_TOL["float32"],
+             "seconds": chunked_s,
+             "vs_sdpa": {n: disagreement(f"_chunked_flash {n}", a, b,
+                                         ATTN_TOL["float32"],
+                                         ATTN_TOL["float32"])
+                         for n, a, b in zip(names, chunked, sdpa)},
+             "vs_float64": {n: {"chunked_rms_rel": rms(a.double() - x)
+                                / rms(x),
+                                "sdpa_rms_rel": rms(b.double() - x) / rms(x)}
+                            for n, a, b, x in zip(names, chunked, sdpa,
+                                                  exact)}}
+    rec["chunked_flash"] = flash
+    del q, k, v, dy, chunked, sdpa, exact
+    torch.cuda.empty_cache()
+    if not all(r["max_err_over_tol"] <= 1.0
+               for r in flash["vs_sdpa"].values()):
+        raise AssertionError(f"train: _chunked_flash parts from _sdpa: "
+                             f"{flash['vs_sdpa']}")
+
+    # ---- (d) the kernels refuse autograd ---------------------------------
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    t = lambda *s: torch.randn(s, generator=g, device=dev)
+    q = t(1, 64, 4, 64).requires_grad_(True)
+    kv = t(1, 64, 4, 64)
+    cache = t(1, 4, 64, 64)
+    r = t(1, 64, 4, 64).requires_grad_(True)
+    w = torch.rand((1, 64, 4, 64), generator=g, device=dev)
+    X = torch.rand((1, 4, 128), generator=g, device=dev).requires_grad_(True)
+    zeros = lambda *s: torch.zeros(s, device=dev)
+    calls = {
+        "flash_attention": lambda: fops.flash_attention(q, kv, kv),
+        "decode_attention": lambda: dops.decode_attention(
+            q[:, :1], cache, cache, torch.ones(64, dtype=torch.int32,
+                                               device=dev)),
+        "rwkv6_scan": lambda: sops.rwkv6_scan(r, kv, kv, w, t(4, 64),
+                                              t(1, 4, 64, 64)),
+        "alloc_objective_fleet": lambda: aops._launch(
+            "alloc_objective_fleet", X, zeros(1, 4, 128), zeros(1, 2, 128),
+            zeros(1, 128), zeros(1, 4), zeros(1, 8), True)}
+    refused = {}
+    for name, call in calls.items():
+        before_n = launches()
+        try:
+            call()
+            refused[name] = "launched"
+        except RuntimeError as e:
+            refused[name] = ("refused" if "has no backward" in str(e)
+                             else f"other error: {e}")
+        if launches() != before_n:
+            refused[name] = "launched"
+    rec["autograd_refused"] = refused
+    if any(v != "refused" for v in refused.values()):
+        raise AssertionError(f"train: a kernel did not refuse autograd: "
+                             f"{refused}")
+    return rec
 
 
 def scenario_checks(dev, ops) -> dict:
@@ -3303,13 +3633,14 @@ def main() -> int:
         n_max=n_pad, m_max=m_pad, p_max=p_pad, device=dev)
     delta = torch.as_tensor([s.delta_max for s in tenants], device=dev)
     step = replay_mod.solve_fleet_step
-    step(batch1, X_cur, delta)                    # warm-up
+    step(batch1, X_cur, delta, steps=PROFILE_STEPS)    # warm-up
     torch.cuda.synchronize()
     res = []
-    prof = profile_once(lambda: res.append(step(batch1, X_cur, delta)),
+    prof = profile_once(lambda: res.append(step(batch1, X_cur, delta,
+                                                steps=PROFILE_STEPS)),
                         top_n=8, match="alloc_objective")
     emit({"phase": "profile", "seconds": time.perf_counter() - t0,
-          "what": "one warm solve_fleet_step",
+          "what": f"one warm solve_fleet_step, {PROFILE_STEPS} iterations",
           "iters_max": int(res[0].iters.max()), **prof})
 
     # ---- scenarios: the paper's one-shot optimizer against the CA --------
@@ -3438,6 +3769,13 @@ def main() -> int:
     families = families_checks(args.seed, dev)
     emit({"phase": "families", "seconds": time.perf_counter() - t0,
           **families})
+
+    # ---- train: the training path at full width and depth ---------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_rec = train_checks(args.seed, dev, (ops, fops, dops, sops))
+    emit({"phase": "train", "seconds": time.perf_counter() - t0,
+          **train_rec})
 
     # ---- the closing lines ---------------------------------------------
     kernels = []

@@ -16,7 +16,9 @@ A horizon window (either package's ``HorizonProblem``, leaves (H, ...) or
 
 A model's parameters cross the same way: ``model_params_from_reference``
 takes the reference's parameter values as numpy arrays and returns the
-port's per-layer parameters.
+port's per-layer parameters; the same mapping carries a gradient tree
+across, and ``adamw_state_from_reference`` the AdamW state (step and the
+float32 moments).
 """
 from __future__ import annotations
 
@@ -123,20 +125,41 @@ def model_params_from_reference(values: Mapping, cfg: ModelConfig,
     ``init_model`` gives it (cfg.param_dtype, or float32 for the RWKV and
     Mamba constants), on ``device``. A model the port does not run
     raises."""
+    return _layers_from_reference(values, cfg, device)
+
+
+def adamw_state_from_reference(state, cfg: ModelConfig,
+                               device: DeviceLike = None):
+    """The port's ``AdamWState`` from the reference's (``step``, ``m``,
+    ``v``; leaves as numpy arrays or anything ``np.asarray`` takes): the
+    step as an int32 scalar, the moments in the per-layer layout of
+    ``model_params_from_reference``, float32 on ``device``."""
+    from .optim.adamw import AdamWState
+    dev = resolve_device(device)
+    moments = lambda tree: _layers_from_reference(tree, cfg, dev,
+                                                  torch.float32)
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32, device=dev),
+                      m=moments(state.m), v=moments(state.v))
+
+
+def _layers_from_reference(values: Mapping, cfg: ModelConfig,
+                           device: DeviceLike = None, dtype=None) -> dict:
+    """The reference's tree (``groups`` leaves stacked over n_groups) in
+    the port's per-layer layout; each leaf in ``dtype``, or in the type
+    ``init_model`` gives it."""
     dev = resolve_device(device)
     # the port's own tree, shapes and types only
     like = init_model(cfg, torch.Generator(), device="meta")
 
     def tree(node, like, index=None):
-        if isinstance(node, Mapping):
-            return {k: tree(v, like[k], index) for k, v in node.items()}
+        if isinstance(like, Mapping):       # the port's key order
+            return {k: tree(node[k], v, index) for k, v in like.items()}
         a = np.asarray(node if index is None else np.asarray(node)[index],
                        np.float32)
-        return torch.tensor(a, device=dev).to(like.dtype)
+        return torch.tensor(a, device=dev).to(dtype or like.dtype)
 
-    out = {k: tree(values[k], like[k])
-           for k in ("embed", "final_norm", "unembed", "frontend_proj")
-           if k in values}
-    out["layers"] = [tree(values["groups"][i % cfg.period], like["layers"][i],
-                          i // cfg.period) for i in range(cfg.n_layers)]
-    return out
+    return {k: ([tree(values["groups"][i % cfg.period], like["layers"][i],
+                      i // cfg.period) for i in range(cfg.n_layers)]
+                if k == "layers" else tree(values[k], v))
+            for k, v in like.items()}

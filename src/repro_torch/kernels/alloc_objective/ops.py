@@ -25,7 +25,7 @@ import torch
 
 from ...core.problem import AllocationProblem
 from ..build import load_library
-from ..operands import check_operand
+from ..operands import check_operand, refuse_autograd
 from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "alloc_objective.cu"
@@ -100,6 +100,7 @@ def _launch(entry: str, X, K, E, c, d, scal, with_grad: bool):
     scal (B, 8); a single problem passes its (m, n)-shaped data as B = 1."""
     B, T, n = X.shape
     m, p = K.shape[-2], E.shape[-2]
+    refuse_autograd("alloc_objective", X, K, E, c, d, scal)
     if not X.is_cuda:
         raise ValueError("alloc_objective: the kernel takes CUDA tensors")
     if m > MAX_M or p > MAX_P:

@@ -43,7 +43,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      use_kernel: Optional[bool] = None) -> torch.Tensor:
     """One-token decode attention. q (B,1,H,dh); caches (B,G,S,dh); valid
     (S,) bool or integer, shared by the batch -> (B,1,H,dh) in q's type."""
-    if not wants_kernel("decode_attention", q, use_kernel):
+    if not wants_kernel("decode_attention", q, use_kernel, k_cache,
+                        v_cache):
         return ref.decode_attention_ref(q, k_cache, v_cache, valid)
     B, _, H, dh = q.shape
     G, S = k_cache.shape[1], k_cache.shape[2]

@@ -44,7 +44,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> torch.Tensor:
     """Causal GQA attention. q (B,S,H,dh); k/v (B,S,G,dh) -> (B,S,H,dh) in
     q's type (float32 or bfloat16; float32 accumulation)."""
-    if not wants_kernel("flash_attention", q, use_kernel):
+    if not wants_kernel("flash_attention", q, use_kernel, k, v):
         return ref.flash_attention_ref(q, k, v, window)
     B, S, H, dh = q.shape
     G = k.shape[2]

@@ -26,7 +26,7 @@
 // products over the lower half of each chunk matrix are 12.8 GFLOP; as
 // 3xTF32, 38 GFLOP of TF32 products: 0.078 ms at the 495 TFLOP/s TF32 rate,
 // 0.12 ms at the 318 TFLOP/s that mma.sync alone reaches (mma_probe.py).
-// On an H100 the kernel takes about 3.3 times the byte bound, held by its
+// On an H100 the kernel takes about 3.8 times the byte bound, held by its
 // products (without them, the loads and the elementwise work reach the
 // bound; PERF.md). The design:
 //   * one team of warps per (b, h) loops over the chunks in order and
@@ -38,9 +38,13 @@
 //     operand x split once into big = rna(x) and small = rna(x - big), rna
 //     being cvt.rna.tf32.f32's rounding done as an integer add and mask
 //     (mma_probe.py checks the two agree on every finite float32), and each
-//     product as small.big + big.small + big.big into float32 sums. Plain
-//     1xTF32 sits at the edge of the 1e-3 tolerance; 3xTF32 leaves about
-//     2^-21 of each product (tests/test_torch_rwkv_tf32.py).
+//     product as small.big + big.small + big.big, a chain of three
+//     mma.sync from zero added to its sum (att, y or the state) with a
+//     float32 add: mma.sync's own sums truncate, and with the chains over
+//     all of hs and every key group in the accumulators the clamp case's
+//     y lay 2.25 times plain float32's rms error from float64 (PERF.md).
+//     Plain 1xTF32 sits at the edge of the 1e-3 tolerance; 3xTF32 leaves
+//     about 2^-21 of each product (tests/test_torch_rwkv_tf32.py).
 //   * a warp owns query rows [16 q, 16 q + 16) (hs 64: q = its slot; fewer
 //     slots than tiles: the tiles q with q mod 2T in {s, 2T - 1 - s}) and
 //     a group of value columns. It forms att = r_dec k_dec^T only for key
@@ -74,9 +78,12 @@
 //     halves in place over the raw tile (the small halves and, in
 //     bfloat16, the big ones to their own tiles). The bonus is summed over
 //     the 4-channel lanes of a row by shuffles. log and exp are the
-//     hardware approximations (__logf, __expf): their error is far inside
-//     the tolerance, and the kernel's rms distance from the chunked form in
-//     float64 stays under twice the plain version's (the card tests).
+//     accurate logf and expf: the hardware approximation's error grows
+//     with its argument's size, and where strong decays drive log W toward
+//     the clamp at -60 (the smoke's clamp case) it put y 2.16 times plain
+//     float32's rms error from float64 (PERF.md); the kernel's rms
+//     distance from the chunked form in float64 stays under twice the
+//     plain version's (the smoke's rwkv phase and the card tests).
 //   * three barriers a chunk (staged tiles visible; segment totals;
 //     processed tiles), team-wide: __syncthreads at hs 64, a named barrier
 //     for a 4-warp team, __syncwarp for a 1-warp team.
@@ -105,9 +112,10 @@
 // the serving shape, all resident at once, so the whole state is in flight
 // together. s0 is never written.
 //
-// ptxas -v (sm_90a, CUDA 12.8), float32 hs 64: the prefill kernel 218
-// registers, no spills, no stack frame (516 HMMA in its code); the decode
-// kernel 50 registers, no spills. chip_smoke.py's rwkv_build line reports
+// ptxas -v (sm_90a, CUDA 12.8), float32 hs 64: the prefill kernel 255
+// registers and 12 spill stores (the chains' temporaries; 218 and none
+// before them), 492 HMMA in its code; the decode kernel 50 registers, no
+// spills. chip_smoke.py's rwkv_build line reports
 // every instantiation.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -215,16 +223,22 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a.b in 3xTF32, the small terms first
+// d += a.b in 3xTF32, the small terms first. mma.sync cuts its float32
+// sums toward zero (mma_probe.py, fact 4), so a long chain of products in
+// one accumulator drifts: the three products form a chain of their own,
+// from zero, and are added to d with a float32 add, which rounds to nearest
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
                                            const uint32_t (&a_big)[4],
                                            const uint32_t (&a_small)[4],
                                            uint32_t b0_big, uint32_t b1_big,
                                            uint32_t b0_small,
                                            uint32_t b1_small) {
-  mma_tf32(d, a_small, b0_big, b1_big);
-  mma_tf32(d, a_big, b0_small, b1_small);
-  mma_tf32(d, a_big, b0_big, b1_big);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a_small, b0_big, b1_big);
+  mma_tf32(t, a_big, b0_small, b1_small);
+  mma_tf32(t, a_big, b0_big, b1_big);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
 // ---- loads and stores ---------------------------------------------------
@@ -455,7 +469,7 @@ rwkv6_chunks_kernel(const T* __restrict__ r, const T* __restrict__ k,
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          lw[q][e] = ok ? __logf(x[e]) : 0.f;
+          lw[q][e] = ok ? logf(x[e]) : 0.f;
           acc[e] += lw[q][e];
           run[q][e] = acc[e];
         }
@@ -552,9 +566,9 @@ rwkv6_chunks_kernel(const T* __restrict__ r, const T* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float cum = off[e] + run[q][e];
-            rd[e] = rr[e] * __expf(cum - lw[q][e]);
-            kd[e] = kk[e] * __expf(-fminf(fmaxf(cum, -kClamp), 0.f));
-            kl[e] = kk[e] * __expf(end[e] - cum);
+            rd[e] = rr[e] * expf(cum - lw[q][e]);
+            kd[e] = kk[e] * expf(-fminf(fmaxf(cum, -kClamp), 0.f));
+            kl[e] = kk[e] * expf(end[e] - cum);
           }
           put4(big0, smalls, o_rk, rd);
           put4(big0 + tile, smalls + tile, o_rk, kd);

@@ -61,7 +61,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (y (B, S, H, hs) in r's type, s_final (B, H, hs, hs) float32). ``chunk``
     is cut to S, as in the reference; the kernel takes 1 <= chunk <= 64
     and hs in {8, 16, 32, 64}."""
-    if not wants_kernel("rwkv6_scan", r, use_kernel):
+    if not wants_kernel("rwkv6_scan", r, use_kernel, k, v, w, u, s0):
         return ref.rwkv6_scan_chunked(r, k, v, w, u, s0, chunk)
     B, S, H, hs = r.shape
     chunk = min(int(chunk), S)

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ...remat import maybe_checkpoint
+
 CLAMP = 60.0   # the chunked form's clamp of -log W_i (rwkv.py:111)
 
 
@@ -36,7 +38,10 @@ def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       S'  = diag(W_c) S_0 + sum_i (k_i W_c / W_i) v_i^T
 
     A ragged last chunk is padded with identity positions (r = k = v = 0,
-    w = 1), whose outputs are dropped."""
+    w = 1), whose outputs are dropped. It is differentiable: where autograd
+    records, each chunk's body runs under checkpoint, as the reference's
+    ``jax.checkpoint`` of it, so the (B, H, c, c) intra-chunk matrix is
+    recomputed in the backward instead of kept."""
     B, S, H, hs = r.shape
     out_dtype = r.dtype
     r, k, v, w, u = (a.to(compute_dtype) for a in (r, k, v, w, u))
@@ -49,11 +54,8 @@ def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nc = (S + pad) // chunk
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
-    state = s0.to(compute_dtype)
-    ys = []
-    for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        rr, kk, vv, ww = r[:, sl], k[:, sl], v[:, sl], w[:, sl]  # (B,c,H,hs)
+
+    def step(state, rr, kk, vv, ww):                         # (B, c, H, hs)
         logw = torch.log(ww)
         cum = torch.cumsum(logw, dim=1)          # log W_t
         r_dec = rr * torch.exp(cum - logw)       # r_t W_{t-1}
@@ -64,11 +66,18 @@ def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y = torch.einsum("bhti,bihc->bthc", att, vv)
         y = y + bonus[..., None] * vv
         y = y + torch.einsum("bthc,bhcd->bthd", r_dec, state)
-        ys.append(y)
         end = cum[:, -1]                         # (B, H, hs)
         k_tail = kk * torch.exp(end[:, None] - cum)
-        state = (torch.exp(end)[..., None] * state
-                 + torch.einsum("bihc,bihd->bhcd", k_tail, vv))
+        return y, (torch.exp(end)[..., None] * state
+                   + torch.einsum("bihc,bihd->bhcd", k_tail, vv))
+
+    state = s0.to(compute_dtype)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        y, state = maybe_checkpoint(step, state, r[:, sl], k[:, sl],
+                                    v[:, sl], w[:, sl])
+        ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S]
     return y.to(out_dtype), state
 

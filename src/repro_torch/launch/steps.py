@@ -1,17 +1,23 @@
-"""Serving step functions — port of ``make_prefill_step`` and
-``make_decode_step`` of ``repro.launch.steps``.
+"""Step functions — port of ``repro.launch.steps``: ``make_train_step``,
+``make_prefill_step`` and ``make_decode_step``.
+
+The train step takes the value and gradient of ``loss_fn`` by autograd and
+then one in-place ``optim.adamw.update``. It runs the plain route by
+default (``use_kernel=False``), as the reference's ``use_pallas=False``:
+the kernels have no backward, and a kernel asked to launch under autograd
+raises.
 
 Where the reference jits each step with explicit shardings, these run
-eagerly under ``torch.inference_mode()`` (no autograd records; the caches
-are inference tensors). They serve every registered config: the dense
+eagerly; the serving steps under ``torch.inference_mode()`` (no autograd
+records; the caches are inference tensors). They serve every registered
+config: the dense
 and MoE attention models (qwen1.5-4b, nemotron-4-15b, command-r-plus-104b,
 granite-34b, musicgen-medium, mixtral-8x22b, llama4-maverick-400b-a17b),
 the attention/Mamba hybrid (jamba-1.5-large-398b), RWKV6 (rwkv6-7b) and
 the vision model (internvl2-26b, whose prefill batch carries
 ``frontend_embeds`` beside ``tokens``; the batch is passed on unchanged).
 KV caches are written in place; RWKV and Mamba state caches are replaced
-in the list the step returns. ``make_train_step`` waits for the training
-slice.
+in the list the step returns.
 """
 from __future__ import annotations
 
@@ -21,7 +27,34 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import decode_step as model_decode_step
+from ..models import loss_fn
 from ..models import prefill as model_prefill
+from ..optim import adamw
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    use_kernel: Optional[bool] = False):
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics):
+    the loss and its gradient with respect to every parameter leaf, then
+    AdamW, which updates ``params`` and the moments in place and lets each
+    gradient go once its leaf is updated. metrics: loss, xent, aux,
+    grad_norm, lr (0-dim float32 tensors on the parameters' device)."""
+    def train_step(params, opt_state, batch):
+        leaves = adamw.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, metrics = loss_fn(cfg, params, batch, use_kernel=use_kernel)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        slot = iter(grads)
+        grad_tree = adamw.tree_map(lambda _: next(slot), params)
+        del grads, slot
+        params, opt_state, om = adamw.update(opt_cfg, grad_tree, opt_state,
+                                             params)
+        return params, opt_state, {
+            "loss": loss.detach(),
+            **{k: v.detach() for k, v in metrics.items()}, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, s_max: int,

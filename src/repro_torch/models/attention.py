@@ -13,12 +13,21 @@ The kernel switch ``use_kernel`` takes the place of the reference's
 - ``False``: the reference's plain path, ``_sdpa`` over an additive mask, on
   any device.
 
+The plain path is the reference's: ``_sdpa`` for S <= 1024 and
+``_chunked_flash`` above, an online softmax over KV chunks whose Q- and
+KV-chunk bodies run under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``), so that the backward recomputes the score blocks
+instead of keeping them. The kernels have no backward: a wrapper asked to
+launch its kernel while autograd records raises (training passes
+``use_kernel=False``, as the reference's train step passes
+``use_pallas=False``).
+
 Differences from the reference: the KV cache is written in place (the
-functions return the cache they were given); ``_chunked_flash``, the
-reference's memory-saving jnp path for S > 1024 built on
-``jax.checkpoint``, waits for the training slice, so the plain path is
-``_sdpa`` at every S (the same function); ``distributed.sharding.constrain``
-is the identity on one device and is dropped.
+functions return the cache they were given); ``_chunked_flash`` skips the
+KV chunks that lie wholly after a Q chunk (the reference scans them under
+a mask that makes each an exact no-op: p = 0, corr = 1);
+``distributed.sharding.constrain`` is the identity on one device and is
+dropped.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
+from ..remat import maybe_checkpoint
 from .layers import apply_rope, rope_tables
 from .param import dense_init, zeros_init
 
@@ -94,6 +104,67 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, S, H, dh)
 
 
+Q_CHUNK, KV_CHUNK = 512, 1024
+
+
+def _chunked_flash(q, k, v, window: int, q_chunk=None, kv_chunk=None,
+                   unroll: bool = False, probs_bf16: bool = False):
+    """Flash attention in plain PyTorch (online softmax over KV chunks, a
+    loop over Q chunks): memory O(B q_chunk H kv_chunk) instead of
+    O(B H S^2), since both chunk bodies run under checkpoint (unless
+    ``unroll``) and the backward recomputes their score blocks. Causal, with
+    an optional sliding window, applied by masking. q (B,S,H,dh), k/v
+    (B,T,G,dh) -> (B,S,H,dh)."""
+    B, S, H, dh = q.shape
+    T, G = k.shape[1], k.shape[2]
+    qc = min(q_chunk or Q_CHUNK, S)
+    kc = min(kv_chunk or KV_CHUNK, T)
+    if S % qc or T % kc:
+        raise ValueError(f"_chunked_flash: S={S} and T={T} must be multiples "
+                         f"of the chunks {qc} and {kc}")
+    R = H // G
+    # 1 / sqrt(dh) rounded as the reference rounds it, in float32
+    scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
+    qs = q.reshape(B, S // qc, qc, G, R, dh)
+    ks = k.reshape(B, T // kc, kc, G, dh)
+    vs = v.reshape(B, T // kc, kc, G, dh)
+    dev = q.device
+
+    def kv_step(m, l, acc, qblk, kblk, vblk, q0: int, k0: int):
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qblk, kblk).float() * scale
+        qpos = q0 + torch.arange(qc, device=dev)[:, None]
+        kpos = k0 + torch.arange(kc, device=dev)[None, :]
+        ok = kpos <= qpos
+        if window > 0:
+            ok = ok & (kpos > qpos - window)
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(dim=-1)
+        if probs_bf16:
+            # the reference's lever: post-max weights lie in [0, 1]
+            p = p.to(torch.bfloat16)
+        pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(vblk.dtype), vblk)
+        return m_new, l_new, acc * corr[..., None].to(acc.dtype) + pv
+
+    def q_step(qblk, q0: int):
+        m = torch.full((B, G, R, qc), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, G, R, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, G, R, qc, dh), dtype=v.dtype, device=dev)
+        # KV chunks wholly after the Q chunk's last row: exact no-ops
+        for j in range(min(T // kc, (q0 + qc - 1) // kc + 1)):
+            m, l, acc = maybe_checkpoint(kv_step, m, l, acc, qblk, ks[:, j],
+                                         vs[:, j], q0, j * kc, unroll=unroll)
+        return acc / l.clamp_min(1e-30)[..., None].to(acc.dtype)
+
+    outs = [maybe_checkpoint(q_step, qs[:, i], i * qc, unroll=unroll)
+            for i in range(S // qc)]
+    out = torch.stack(outs, dim=1)                # (B, S//qc, G, R, qc, dh)
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, H, dh)
+
+
 def causal_mask(S: int, T: int, offset: int, window: int,
                 device=None) -> torch.Tensor:
     """(1, 1, S, T) additive mask. offset = index of query 0 within keys."""
@@ -109,6 +180,12 @@ def causal_mask(S: int, T: int, offset: int, window: int,
 def _attend_full(q, k, v, cfg, use_kernel: Optional[bool]):
     if use_kernel is False:
         S = q.shape[1]
+        if S > 1024:
+            return _chunked_flash(q, k, v, cfg.window,
+                                  q_chunk=cfg.attn_q_chunk or None,
+                                  kv_chunk=cfg.attn_kv_chunk or None,
+                                  unroll=cfg.unroll_inner,
+                                  probs_bf16=cfg.attn_probs_bf16)
         return _sdpa(q, k, v, causal_mask(S, S, 0, cfg.window, q.device))
     return flash_attention(q, k, v, window=cfg.window, use_kernel=use_kernel)
 

@@ -1,9 +1,12 @@
 """Shared layers: norms, rotary embeddings, embedding/unembedding, FFNs —
 port of ``repro.models.layers``.
 
-The reference's custom VJP of the embedding lookup (a chunked one-hot
-matmul that GSPMD can shard) serves training only; here the lookup is plain
-indexing, and its gradient waits for the training slice.
+The embedding lookup carries the reference's custom VJP as a
+``torch.autograd.Function`` (``embed_lookup``): the table's gradient is
+accumulated in float32 and cast to the table's type. The reference forms
+it by chunked one-hot matmuls so that GSPMD can shard the work over the
+vocabulary; on one device ``index_add_`` into a float32 (V, D) buffer
+computes the same sum.
 """
 from __future__ import annotations
 
@@ -68,9 +71,36 @@ def init_embedding(gen, vocab: int, d: int, dtype, device):
     return {"table": dense_init(gen, (vocab, d), dtype, device, scale=1.0)}
 
 
+class EmbedLookup(torch.autograd.Function):
+    """table[tokens], with dTable summed in float32 (or in the incoming
+    gradient's type where that is wider) and cast to the table's type (the
+    reference's ``_embed_bwd``, ``preferred_element_type=float32``);
+    tokens get no gradient."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        tokens, = ctx.saved_tensors
+        acc_dtype = torch.promote_types(torch.float32, g.dtype)
+        acc = torch.zeros(ctx.table_shape, dtype=acc_dtype, device=g.device)
+        acc.index_add_(0, tokens.reshape(-1),
+                       g.reshape(-1, g.shape[-1]).to(acc_dtype))
+        return acc.to(ctx.table_dtype), None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) integer -> table rows (B, S, D)."""
+    return EmbedLookup.apply(table, tokens.long())
+
+
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) integer -> (B, S, D)."""
-    return F.embedding(tokens.long(), p["table"])
+    return embed_lookup(p["table"], tokens)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:

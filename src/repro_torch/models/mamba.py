@@ -8,7 +8,11 @@ N))``; each call returns a new cache (the reference's are immutable too).
 The reference computes the scan with ``jax.lax.associative_scan`` in jnp,
 not in a Pallas kernel, so this is plain PyTorch on every device.
 ``distributed.sharding.constrain`` is the identity on one device and is
-dropped; ``jax.checkpoint`` of the chunk body serves training only.
+dropped. Under autograd the chunk body runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``: the scan's
+per-level values are recomputed in the backward instead of kept), and the
+chunk scan steps out of place, since the backward needs the values an
+in-place step would overwrite.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..remat import maybe_checkpoint
 from .param import dense_init, ones_init, zeros_init
 
 
@@ -59,28 +64,37 @@ def init_mamba(gen, cfg, dtype, device):
 def _scan_chunk(a: torch.Tensor, b: torch.Tensor):
     """Inclusive scan of h_t = a_t h_{t-1} + b_t over axis 1 from h = 0, with
     the running product of a beside it: returns (A_t, B_t) such that
-    h_t = A_t h_0 + B_t, overwriting ``a`` and ``b``. Hillis-Steele, log2 of
-    the chunk's length in steps: step k composes each t >= 2^k with
-    t - 2^k by the reference's pairwise ``compose``: ((al, bl), (ar, br))
-    -> (al ar, ar bl + br), whose factors stay <= 1. Log depth rather than
-    a loop over the chunk's tokens: a few large elementwise launches per
-    step instead of a few small ones per token (the reference's
-    ``associative_scan`` is log depth too, in another pattern); the extra
-    work, chunk log chunk, is elementwise."""
+    h_t = A_t h_0 + B_t. Hillis-Steele, log2 of the chunk's length in
+    steps: step k composes each t >= 2^k with t - 2^k by the reference's
+    pairwise ``compose``: ((al, bl), (ar, br)) -> (al ar, ar bl + br),
+    whose factors stay <= 1. Log depth rather than a loop over the chunk's
+    tokens: a few large elementwise launches per step instead of a few
+    small ones per token (the reference's ``associative_scan`` is log depth
+    too, in another pattern); the extra work, chunk log chunk, is
+    elementwise. Where autograd records nothing the steps overwrite ``a``
+    and ``b``; under autograd each step makes new tensors from the same
+    products, so the values are the same either way."""
     c, k = a.shape[1], 1
+    in_place = not (torch.is_grad_enabled()
+                    and (a.requires_grad or b.requires_grad))
     while k < c:
-        # the right-hand sides are formed before the writes
-        b[:, k:] = a[:, k:] * b[:, :-k] + b[:, k:]
-        a[:, k:] = a[:, k:] * a[:, :-k]
+        if in_place:
+            # the right-hand sides are formed before the writes
+            b[:, k:] = a[:, k:] * b[:, :-k] + b[:, k:]
+            a[:, k:] = a[:, k:] * a[:, :-k]
+        else:
+            b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1)
+            a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
         k *= 2
     return a, b
 
 
 def _ssm_chunked_scan(u, dt, B_, C_, A, D, chunk: int,
                       init_state: Optional[torch.Tensor] = None,
-                      scan_bf16: bool = False):
+                      scan_bf16: bool = False, unroll: bool = False):
     """u/dt (B, S, di); B_/C_ (B, S, N); A (di, N); D (di,), all float32.
-    Returns (y (B, S, di), final_state (B, di, N) float32)."""
+    Returns (y (B, S, di), final_state (B, di, N) float32). Each chunk's
+    body runs under checkpoint where autograd records, unless ``unroll``."""
     Bb, S, di = u.shape
     N = B_.shape[-1]
     chunk = min(chunk, S)
@@ -91,10 +105,8 @@ def _ssm_chunked_scan(u, dt, B_, C_, A, D, chunk: int,
     nc = (S + pad) // chunk
     state = (torch.zeros((Bb, di, N), dtype=torch.float32, device=u.device)
              if init_state is None else init_state.float())
-    ys = []
-    for i in range(nc):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        uc, dtc, Bc, Cc = u[:, sl], dt[:, sl], B_[:, sl], C_[:, sl]
+
+    def chunk_step(state, uc, dtc, Bc, Cc):
         dA = torch.exp(dtc[..., None] * (-A))                 # (B, c, di, N)
         dBu = (dtc * uc)[..., None] * Bc[:, :, None, :]       # (B, c, di, N)
         if scan_bf16:
@@ -103,8 +115,15 @@ def _ssm_chunked_scan(u, dt, B_, C_, A, D, chunk: int,
             dA, dBu = dA.to(torch.bfloat16), dBu.to(torch.bfloat16)
         At, Bt = _scan_chunk(dA, dBu)
         h = At.float() * state[:, None] + Bt.float()          # (B, c, di, N)
-        ys.append(torch.einsum("bcdn,bcn->bcd", h, Cc))
-        state = h[:, -1].clone()   # lets the chunk's h go
+        # the last state as a tensor of its own lets the chunk's h go
+        return torch.einsum("bcdn,bcn->bcd", h, Cc), h[:, -1].clone()
+
+    ys = []
+    for i in range(nc):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        y_c, state = maybe_checkpoint(chunk_step, state, u[:, sl], dt[:, sl],
+                                      B_[:, sl], C_[:, sl], unroll=unroll)
+        ys.append(y_c)
     y = torch.cat(ys, dim=1)[:, :S]
     return y + u[:, :S] * D, state
 
@@ -140,7 +159,7 @@ def mamba_block(p, cfg, x, cache: Optional[MambaCache] = None):
     y, state = _ssm_chunked_scan(
         xs.float(), dt, B_.float(), C_.float(), A, p["D"], chunk,
         cache.ssm if cache is not None else None,
-        scan_bf16=cfg.ssm_scan_bf16)
+        scan_bf16=cfg.ssm_scan_bf16, unroll=cfg.unroll_inner)
     y = y.to(x.dtype) * F.silu(z)
     return y @ p["out_proj"], MambaCache(conv=new_conv, ssm=state)
 

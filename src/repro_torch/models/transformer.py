@@ -12,11 +12,17 @@ a list of per-layer caches: a ``KVCache`` (written in place) for an
 attention layer, an ``RWKVCache`` or a ``MambaCache`` (replaced in the
 list) for an RWKV or a Mamba layer.
 
-Three entry points: ``forward`` (teacher forcing), ``prefill`` (forward +
-cache build), ``decode_step`` (one token). Each takes ``use_kernel`` (see
-``repro_torch.models.attention`` and ``repro_torch.models.rwkv``; the MoE
-FFN and the Mamba block have no kernel). ``loss_fn`` waits for the
-training slice.
+Four entry points: ``forward`` (teacher forcing), ``loss_fn`` (training:
+the chunked cross-entropy plus the MoE aux loss, differentiable),
+``prefill`` (forward + cache build), ``decode_step`` (one token). Each
+takes ``use_kernel`` (see ``repro_torch.models.attention`` and
+``repro_torch.models.rwkv``; the MoE FFN and the Mamba block have no
+kernel). The kernels have no backward, so ``loss_fn`` defaults to the
+plain route (``use_kernel=False``), as the reference's defaults to
+``use_pallas=False``. Under autograd each layer runs under ``cfg.remat``
+(``repro_torch.remat``): "full" keeps only its input, "dots" also the
+weight products' outputs, "none" everything; the reference checkpoints its
+scanned group body the same ways.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..remat import remat
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
@@ -38,10 +45,10 @@ from .mamba import MambaCache
 from .param import dense_init
 from .rwkv import RWKVCache
 
-NOT_PORTED = ("not ported: repro_torch serves attention and Mamba blocks "
+NOT_PORTED = ("not ported: repro_torch runs attention and Mamba blocks "
               "with dense or MoE FFNs and RWKV6 blocks with their channel "
-              "mix, the layer kinds of the registered configs; training "
-              "(loss_fn) is still to port (see ROADMAP.md)")
+              "mix, the layer kinds of the registered configs (see "
+              "ROADMAP.md)")
 # the (block, ffn) kinds a layer may have
 PORTED_KINDS = {("attn", "dense"), ("attn", "moe"), ("mamba", "dense"),
                 ("mamba", "moe"), ("rwkv", "rwkv_cm")}
@@ -172,7 +179,9 @@ def _run_layers(cfg, params, x, positions, mode, caches=None, pos=None,
     in decode, the validity vector ``valid``) are made once for all layers,
     and only if some layer is attention.
 
-    Returns (x, aux): aux sums the MoE layers' auxiliary losses.
+    Returns (x, aux): aux sums the MoE layers' auxiliary losses. In
+    "train" mode each layer runs under cfg.remat (``repro_torch.remat``;
+    nothing is kept or recomputed where autograd records nothing).
 
     ``on_layer``, if given, is called after each layer's block (attention,
     time mix or Mamba) as ``on_layer(i, y, cache, rerun)``: ``y`` and ``cache``
@@ -186,16 +195,25 @@ def _run_layers(cfg, params, x, positions, mode, caches=None, pos=None,
     for i, (layer, (blk, fk)) in enumerate(zip(params["layers"],
                                                layer_kinds(cfg))):
         cache_in = caches[i] if caches is not None else None
-        h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
-        block = partial(_apply_block, layer["mix"], cfg, blk, h, positions,
-                        mode, cache_in, rope, pos, valid)
-        y, cache = block(use_kernel)
-        if on_layer is not None:
-            on_layer(i, y, cache, block)
-        x = x + y
-        h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
-        y, layer_aux, cache = _apply_ffn(layer["ffn"], cfg, fk, h, cache)
-        x = x + y
+
+        def one_layer(x, layer=layer, blk=blk, fk=fk, cache_in=cache_in,
+                      i=i):
+            h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
+            block = partial(_apply_block, layer["mix"], cfg, blk, h,
+                            positions, mode, cache_in, rope, pos, valid)
+            y, cache = block(use_kernel)
+            if on_layer is not None:
+                on_layer(i, y, cache, block)
+            x = x + y
+            h = rmsnorm(layer["norm2"], x, cfg.norm_eps)
+            y, layer_aux, cache = _apply_ffn(layer["ffn"], cfg, fk, h, cache)
+            return x + y, layer_aux, cache
+
+        if mode == "train":
+            # teacher forcing threads no cache: the layer under cfg.remat
+            x, layer_aux, cache = remat(one_layer, cfg.remat, x)
+        else:
+            x, layer_aux, cache = one_layer(x)
         aux = aux + layer_aux
         if caches is not None:
             caches[i] = cache
@@ -231,6 +249,40 @@ def forward(cfg: ModelConfig, params, batch,
                          use_kernel=use_kernel, on_layer=on_layer)
     return _logits(cfg, params, x), torch.as_tensor(
         aux, dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params, batch,
+            use_kernel: Optional[bool] = False):
+    """The training loss: mean next-token cross-entropy plus the MoE aux
+    loss. batch: tokens and labels (B, S) integer [+ frontend_embeds].
+    Returns (loss + aux, {"xent": loss, "aux": aux}), float32 scalars. The
+    cross-entropy is summed over chunks of cfg.loss_chunk positions, each
+    chunk's (B, chunk, V) logits in float32 (the reference's
+    ``preferred_element_type=float32``), which bounds the logits buffer; S
+    must be a multiple of the chunk. ``use_kernel`` defaults to False: the
+    kernels have no backward."""
+    x = _embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    x, aux = _run_layers(cfg, params, x, positions, "train",
+                         use_kernel=use_kernel)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    table = params.get("unembed", params["embed"])["table"]
+    labels = batch["labels"].long()
+    chunk = min(cfg.loss_chunk, S)
+    if S % chunk:
+        raise ValueError(f"loss_fn: S={S} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = x[:, sl].float() @ table.float().T          # (B, chunk, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, sl, None])[..., 0]
+        total = total + (logz - gold).sum()
+    loss = total / (B * S)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, batch, s_max: int,

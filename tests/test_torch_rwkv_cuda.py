@@ -112,6 +112,33 @@ def test_prefill_error_against_float64_is_near_the_plain_versions(cuda):
     assert rms(y.double() - y64) <= 2 * rms(yr.double() - y64)
 
 
+@pytest.mark.parametrize("B,S,H,hs,chunk,w_lo,w_hi", [
+    (8, 1024, 64, 64, 64, 0.7, 0.999),     # rwkv6-7b prefill
+    (8, 1056, 64, 64, 64, 0.7, 0.999),     # a ragged last chunk
+    (8, 1024, 64, 64, 64, 0.02, 0.5),      # the clamp at e^-60 bites
+    (8, 1024, 256, 16, 16, 0.7, 0.999),
+])
+def test_prefill_kernel_float32_rounds_as_float32_does(cuda, B, S, H, hs,
+                                                       chunk, w_lo, w_hi):
+    """Against the chunked form in float64, the float32 prefill form's rms
+    error, of y and of the final state, is at most twice the plain float32
+    version's: its 3xTF32 products round as float32's do. (With the chains
+    of products in the tensor cores' accumulators, which truncate, and the
+    approximate exp, the clamp case's y reached 2.25 times it.)"""
+    gen = torch.Generator(device=cuda).manual_seed(S + hs + int(100 * w_lo))
+    r, k, v, w, u, s0 = _inputs(gen, B, S, H, hs, torch.float32, cuda,
+                                w_lo, w_hi)
+    kern = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=chunk)
+    plain = ref.rwkv6_scan_chunked(r, k, v, w, u, s0, chunk)
+    exact = ref.rwkv6_scan_chunked(*(a.double() for a in (r, k, v, w, u,
+                                                           s0)), chunk,
+                                   compute_dtype=torch.float64)
+    rms = lambda t: t.pow(2).mean().sqrt().item()
+    for got, want, x in zip(kern, plain, exact):
+        assert rms(got.double() - x) <= 2 * rms(want.double() - x), (
+            rms(got.double() - x) / rms(want.double() - x))
+
+
 @pytest.mark.parametrize("S", [1, 130])
 def test_s0_is_not_written(cuda, S):
     gen = torch.Generator(device=cuda).manual_seed(S)
