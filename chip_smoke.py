@@ -328,6 +328,31 @@ Phases, one JSON object per line:
              ``_chunked_flash`` against ``_sdpa`` at (1, 2048, 20/20, 128),
              outputs and q/k/v gradients at 2e-4, both against float64;
              (d) every kernel wrapper refuses operands that require grad.
+15. distributed — the distributed substrate in a world of one over NCCL
+             (``distributed_checks``; one card, so multi-rank behaviour is
+             held to the reference by the CPU tests over gloo): (a)
+             ``ElasticFleet`` on make_tpu_catalog() (n = 18), the
+             reference test's job: the initial plan, a replan after 30%
+             of the fleet fails, examples/autoscale_controller.py's seven
+             load scales, with the alloc_objective kernel and plain (equal
+             counts, or the kernel run's those of a plain run with the
+             job's FLOPs one ulp away), launches by shape, each launched
+             shape timed against plain (its rows on the kernels line); (b)
+             int8 gradient compression at a qwen1.5-4b leaf's shape (2560
+             x 6912): ``compressed_psum`` equal to ``compress_decompress``,
+             50 error-feedback steps with the running sum within one
+             quantisation step; (c) ``launch.train.train`` on a 1x1 mesh
+             (DTensor state) against the one-device loop, qwen1.5-4b at
+             full width and 2 layers, 3 steps of 8 x 128 (loss, grad norm
+             at 2e-4; parameters at rtol 2e-4, atol 2e-4 x the leaf's
+             largest element); (d) ``TrainingSupervisor.run`` around the
+             1x1 launcher on the reduced config: one failure injected
+             after the first committed checkpoint, the ``replan_shards``
+             hook asking (a)'s fleet, the resumed steps' losses against an
+             uninterrupted run's at 2e-4. (d) is at reduced size: a
+             checkpoint of qwen1.5-4b at full width holds about 47 GB
+             (3.95 B parameters and both moments in float32), too long to
+             write within the smoke's time.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -494,6 +519,25 @@ MPC_HORIZON, MPC_TICKS, MPC_PROFILE_STEPS = 8, 3, 60
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1.5-4b", 8, 128, 3
 TRAIN_LONG_SEQ, TRAIN_LR, TWIN_LAYERS = 2048, 1e-3, 2
 TWIN_TOL = {"loss": 1e-5, "grad": 2e-4, "m": 2e-4, "v": 4e-4}
+# the distributed phase: (a) ElasticFleet on make_tpu_catalog() with the
+# reference test's job (tests/distributed/test_substrates.py), 30% of the
+# fleet failed, then examples/autoscale_controller.py's seven load scales;
+# (b) int8 compression at a qwen1.5-4b gradient leaf's shape, 50 error-
+# feedback steps; (c) the launcher on a 1x1 mesh against the one-device
+# loop, TRAIN_ARCH at full width and MESH_LAYERS layers, TRAIN_BATCH x
+# TRAIN_SEQ, MESH_STEPS steps, at MESH_TOL (loss, grad norm; parameters at
+# rtol MESH_TOL and atol MESH_TOL x the leaf's largest element, a key bias,
+# whose gradient is rounding noise, at 10x); (d) the supervisor's restart
+# loop around the launcher on the reduced config, SUPERVISED_STEPS steps,
+# a checkpoint every SUPERVISED_EVERY, one failure at SUPERVISED_FAIL
+ELASTIC_JOB = dict(name="train-104b", hlo_flops=2.5e16, hlo_bytes=1e14,
+                   collective_bytes=5e12, bytes_per_device=8e9, devices=256,
+                   step_budget_s=1.0)
+ELASTIC_FAILED, ELASTIC_SCALES = 0.3, (1.0, 1.3, 1.8, 1.4, 0.8, 0.6, 1.0)
+COMPRESS_SHAPE, COMPRESS_STEPS = (2560, 6912), 50
+MESH_LAYERS, MESH_STEPS, MESH_TOL = 2, 3, 2e-4
+NOISE_LEAVES = ("bk",)
+SUPERVISED_STEPS, SUPERVISED_EVERY, SUPERVISED_FAIL = 6, 2, 3
 # the bucketed fleet: tenants spread over instances[::k] of the catalog
 BUCKET_TENANTS, BUCKET_STRIDES = 32, (1, 2, 8, 40)
 # base demands of examples/fleet_replay.py's four tenants, by trace kind
@@ -1971,6 +2015,354 @@ def train_checks(seed: int, dev, kernel_ops) -> dict:
         raise AssertionError(f"train: a kernel did not refuse autograd: "
                              f"{refused}")
     return rec
+
+
+def _elastic_run(TJob, ElasticFleet, dev, use_kernel: bool,
+                 ulp: int = 0) -> tuple:
+    """ElasticFleet's replans in order (initial, after ELASTIC_FAILED of
+    the fleet fails, each of ELASTIC_SCALES), the job's FLOPs moved by
+    ``ulp`` float64 ulps. Returns (fleet, [(label, plan, churn)])."""
+    import numpy as np
+    flops = ELASTIC_JOB["hlo_flops"]
+    for _ in range(abs(ulp)):
+        flops = float(np.nextafter(flops, np.inf if ulp > 0 else -np.inf))
+    fleet = ElasticFleet(TJob(**dict(ELASTIC_JOB, hlo_flops=flops)),
+                         delta_max=64.0, device=dev, use_kernel=use_kernel)
+    plans = [("initial", fleet.initial_plan())]
+    failed = np.ceil(fleet.controller.x_current * ELASTIC_FAILED)
+    plans.append(("failure", fleet.replan_after_failure(failed)))
+    for s in ELASTIC_SCALES:
+        plans.append((f"x{s}", fleet.replan_for_demand(s)))
+    churn = [st.churn for st in fleet.controller.history]
+    return fleet, [(lb, pl, ch) for (lb, pl), ch in zip(plans, churn)]
+
+
+def _elastic_shape_case(ops, ref, prob, key: str, gen) -> dict:
+    """An entry at a shape the elastic run launched (``entry@B=1,T=..,
+    n=..``) on the run's own problem, against its plain version, timed,
+    with its bound: the single-problem entry (the cold multistart) or the
+    fleet entries at B = 1 (the warm incremental solve stacks its one
+    problem, ``core.problem.unsqueeze_problem``)."""
+    import torch
+    from repro_torch.core.problem import unsqueeze_problem
+    name = key.split("@")[0]
+    T = int(key.split("T=")[1].split(",")[0])
+    st = unsqueeze_problem(prob)
+    X = (2.0 * torch.rand((1, T, prob.n), generator=gen, device=prob.device)
+         * st.mask[:, None, :]).contiguous()
+    args = (st.K, st.E, st.c, st.d, *ops._params(st))
+    grad = name != "alloc_objective_fleet_value"
+    if name == "alloc_objective":
+        kern = lambda: ops.batched_value_and_grad(prob, X[0])
+        plain = lambda: ref.alloc_objective_ref(X[0], *(
+            a[0] for a in args))
+        scal = ops._single_scalars(prob)
+    elif grad:
+        kern = lambda: ops.fleet_value_and_grad(st, X)
+        plain = lambda: ref.alloc_objective_fleet_ref(X, *args)
+        scal = ops._fleet_scalars(st)
+    else:
+        kern = lambda: (ops.fleet_value(st, X),)
+        plain = lambda: (ref.alloc_objective_fleet_value(X, *args),)
+        scal = ops._fleet_scalars(st)
+    flat = lambda out: torch.cat([t.flatten() for t in out])
+    rec = compare(key, flat(kern()), flat(plain()))
+    m, p = prob.K.shape[0], prob.E.shape[0]
+    bound_ms, bound_by, nbytes, flops = kernel_bound(1, T, prob.n, m, p,
+                                                     grad)
+    rec.update(name=name, shape={"B": 1, "T": T, "n": prob.n, "m": m,
+                                 "p": p},
+               **timings(kern, plain, lambda: ops._launch(
+                   name, X, st.K, st.E, st.c, st.d, scal, grad)),
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops)
+    return rec
+
+
+def _params_close(got, want, tol) -> dict:
+    """Per leaf of two parameter trees (full tensors): the largest
+    |got - want| over (tol |want| + atol), atol = tol x the leaf's largest
+    element (10x for NOISE_LEAVES); the worst leaf."""
+    worst, where = 0.0, None
+
+    def walk(g, w, path):
+        nonlocal worst, where
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{path}.{k}")
+        elif isinstance(w, list):
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(a, b, f"{path}[{i}]")
+        else:
+            a, b = g.detach().double(), w.detach().double()
+            atol = tol * float(b.abs().max()) * (
+                10 if path.split(".")[-1] in NOISE_LEAVES else 1)
+            over = float(((a - b).abs() / (atol + tol * b.abs()).clamp_min(
+                1e-300)).max())
+            if over > worst:
+                worst, where = over, path
+    walk(got, want, "")
+    return {"max_err_over_tol": worst, "leaf": where}
+
+
+def distributed_checks(seed: int, dev, ops, ref) -> tuple:
+    """The distributed substrate on the card, in a world of one over NCCL
+    (``launch.mesh.init_distributed``; the group is destroyed at the end):
+
+    (a) ``ElasticFleet`` on make_tpu_catalog(): the replans of
+        ``_elastic_run`` with the kernel and plain. Raises unless the two
+        commit equal counts at every replan, or the kernel run's equal
+        those of a plain run with the job's FLOPs one float64 ulp up or
+        down (ULP_STEPS). Launches by shape, chips, cost, churn; the
+        kernel at each launched shape against plain, timed (returned as
+        the kernels line's rows).
+    (b) ``compress_decompress`` and ``compressed_psum`` on the NCCL world
+        at COMPRESS_SHAPE float32: equal; over COMPRESS_STEPS error-
+        feedback steps the running sum within one quantisation step
+        (max |error|) of the true sum.
+    (c) ``launch.train.train`` on a 1x1 ("data", "model") mesh against the
+        one-device loop: TRAIN_ARCH at full width, MESH_LAYERS layers,
+        MESH_STEPS steps of TRAIN_BATCH x TRAIN_SEQ; loss and grad norm at
+        MESH_TOL, parameters after the last step as ``_params_close``;
+        per step seconds and peak GiB, each run's alone (the other run's
+        parameters wait on the host).
+    (d) ``TrainingSupervisor.run`` around the 1x1 launcher on the reduced
+        TRAIN_ARCH: one failure injected at step SUPERVISED_FAIL, after the
+        checkpoint of step SUPERVISED_FAIL - 1 is committed; the
+        ``replan_shards`` hook takes the data-shard count from (a)'s
+        kernel fleet's ``replan_after_failure`` (on one card the mesh stays
+        1x1: the count is recorded, the global batch is the same stream);
+        the resumed steps' losses against an uninterrupted run's at
+        MESH_TOL.
+    Returns (record, the kernels line's rows)."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.workloads import JobSpec
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.distributed.elastic import ElasticFleet
+    from repro_torch.distributed.fault_tolerance import (SupervisorConfig,
+                                                         TrainingSupervisor)
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim import grad_compress as gc_mod
+
+    rec, rows = {}, []
+    t0 = time.perf_counter()
+    init_distributed(dev)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"distributed: expected a world of one over "
+                             f"NCCL, got {dist.get_backend()} x "
+                             f"{dist.get_world_size()}")
+    rec["process_group_s"] = time.perf_counter() - t0
+    try:
+        # ---- (a) the allocator's elastic replans ----------------------
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        with ShapeCounts(ops, with_n=True) as shapes:
+            kfleet, kern = _elastic_run(JobSpec, ElasticFleet, dev, True)
+        k_launches, k_s = dict(ops.LAUNCHES), time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        _, plain = _elastic_run(JobSpec, ElasticFleet, dev, False)
+        p_launches, p_s = dict(ops.LAUNCHES), time.perf_counter() - t0
+        if any(p_launches.values()):
+            raise AssertionError(f"distributed: the plain elastic run "
+                                 f"launched {p_launches}")
+        counts = lambda run: [pl.counts.tolist() for _, pl, _ in run]
+        equal = counts(kern) == counts(plain)
+        twins = {}
+        if not equal:
+            for k in ULP_STEPS:
+                twins[k] = counts(_elastic_run(JobSpec, ElasticFleet, dev,
+                                               False, ulp=k)[1])
+        within = equal or counts(kern) in twins.values()
+        show = lambda run: [{"label": lb, "chips": pl.total_chips,
+                             "cost_per_hour": pl.cost_per_hour,
+                             "mesh": list(pl.mesh_shape), "churn": ch,
+                             "counts": pl.counts.tolist()}
+                            for lb, pl, ch in run]
+        rec["elastic"] = {
+            "catalog_n": kfleet.catalog.n, "job": ELASTIC_JOB,
+            "kernel": {"seconds": k_s, "launches": k_launches,
+                       "launches_by_shape": shapes.by_shape(),
+                       "plans": show(kern)},
+            "plain": {"seconds": p_s, "plans": show(plain)},
+            "counts_equal": equal, "ulp_twins_run": sorted(twins),
+            "within_one_ulp_spread": within}
+        if not within or not k_launches["alloc_objective"]:
+            raise AssertionError(f"distributed: elastic kernel run parts "
+                                 f"from plain: {rec['elastic']}")
+        prob = kfleet.controller.make_problem(
+            kfleet.controller.history[0].demand)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for key, n in shapes.by_shape().items():
+            r = _elastic_shape_case(ops, ref, prob, key, gen)
+            rows.append(("elastic", key, r, n))
+        rec["elastic"]["shapes"] = [{"key": k, **r, "launches": n}
+                                    for _, k, r, n in rows]
+
+        # ---- (b) int8 gradient compression on NCCL --------------------
+        t0 = time.perf_counter()
+        g_gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        g = torch.randn(COMPRESS_SHAPE, generator=g_gen, device=dev)
+        err = torch.zeros_like(g)
+        deq, new_err = gc_mod.compress_decompress(g, err)
+        summed, psum_err = gc_mod.compressed_psum(g, err)
+        psum_equal = bool(torch.equal(deq, summed)
+                          and torch.equal(new_err, psum_err))
+        true_sum = torch.zeros(COMPRESS_SHAPE, dtype=torch.float64,
+                               device=dev)
+        seen_sum = torch.zeros_like(true_sum)
+        err = torch.zeros_like(g)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        for _ in range(COMPRESS_STEPS):
+            g = torch.randn(COMPRESS_SHAPE, generator=g_gen, device=dev)
+            deq, err = gc_mod.compress_decompress(g, err)
+            true_sum += g.double()
+            seen_sum += deq.double()
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - s0
+        resid = float((true_sum - seen_sum).abs().max())
+        max_err = float(err.abs().max())
+        rec["compress"] = {
+            "shape": list(COMPRESS_SHAPE), "psum_equals_local": psum_equal,
+            "steps": COMPRESS_STEPS, "running_sum_resid": resid,
+            "final_max_abs_error": max_err, "loop_s": loop_s,
+            "seconds": time.perf_counter() - t0}
+        del g, err, deq, new_err, summed, psum_err, true_sum, seen_sum
+        if not (psum_equal and resid <= max_err + 1e-5):
+            raise AssertionError(f"distributed: compression failed: "
+                                 f"{rec['compress']}")
+
+        # ---- (c) the launcher on a 1x1 mesh -----------------------------
+        t0 = time.perf_counter()
+        cfg = get_config(TRAIN_ARCH).scaled(n_layers=MESH_LAYERS)
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        runs = {}
+        # each run's parameters wait on the host, so that each peak is its
+        # own run's alone
+        host = lambda tree, where: adamw.tree_map(
+            lambda t: t.detach().to(where), tree)
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, m in (("one_device", None), ("mesh_1x1", mesh)):
+                torch.cuda.reset_peak_memory_stats()
+                params, state, hist = launch.train(
+                    cfg, steps=MESH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    lr=TRAIN_LR, device=dev, seed=seed, mesh=m,
+                    ckpt_every=MESH_STEPS + 1, ckpt_dir=tmp,
+                    log=lambda *_: None)
+                if m is not None:
+                    params, _ = launch.gather_state(params, state)
+                runs[name] = (host(params, "cpu"), hist)
+                del params, state
+                gc.collect()
+                torch.cuda.empty_cache()
+        (p1, h1), (pm, hm) = runs["one_device"], runs["mesh_1x1"]
+        p1, pm = host(p1, dev), host(pm, dev)
+        rel = lambda key: max(abs(a[key] - b[key]) / abs(b[key])
+                              for a, b in zip(hm, h1))
+        close = _params_close(pm, p1, MESH_TOL)
+        rec["mesh_train"] = {
+            "arch": cfg.name, "layers": MESH_LAYERS, "d_model": cfg.d_model,
+            "batch": [TRAIN_BATCH, TRAIN_SEQ], "tol": MESH_TOL,
+            "one_device": [{k: h.get(k) for k in ("loss", "grad_norm",
+                                                  "seconds", "peak_gib")}
+                           for h in h1],
+            "mesh_1x1": [{k: h.get(k) for k in ("loss", "grad_norm",
+                                                "seconds", "peak_gib")}
+                         for h in hm],
+            "loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
+            "params": close, "seconds": time.perf_counter() - t0}
+        del runs, p1, pm
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (rec["mesh_train"]["loss_rel"] <= MESH_TOL
+                and rec["mesh_train"]["grad_norm_rel"] <= MESH_TOL
+                and close["max_err_over_tol"] <= 1.0):
+            raise AssertionError(f"distributed: the 1x1 mesh run parts from "
+                                 f"the one-device run: {rec['mesh_train']}")
+
+        # ---- (d) the supervisor's restart loop --------------------------
+        t0 = time.perf_counter()
+        small = launch.train_config(TRAIN_ARCH, True, TRAIN_SEQ)
+        run = lambda **kw: launch.train(
+            small, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, device=dev,
+            seed=seed, mesh=mesh, total_steps=SUPERVISED_STEPS,
+            log=lambda *_: None, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, straight = run(steps=SUPERVISED_STEPS,
+                                 ckpt_every=SUPERVISED_EVERY,
+                                 ckpt_dir=f"{tmp}/straight")
+            attempts = []
+
+            def fail_once(step, metrics, seconds):
+                if step == SUPERVISED_FAIL and len(attempts) == 1:
+                    raise RuntimeError("host_down")
+
+            def train_fn(start_step, num_shards):
+                attempts.append({"start_step": start_step,
+                                 "num_shards": num_shards})
+                kw = {}
+                d = ckpt.latest_step_dir(f"{tmp}/sup")
+                if d is not None:
+                    like = init_model(small, torch.Generator(
+                        device=dev).manual_seed(seed), dev)
+                    step, tree, _ = ckpt.load(d, {"p": like,
+                                                  "o": adamw.init(like)})
+                    kw = dict(params=tree["p"], opt_state=tree["o"],
+                              first_step=step + 1)
+                first = kw.get("first_step", 0)
+                _, _, hist = run(steps=SUPERVISED_STEPS - first,
+                                 ckpt_every=SUPERVISED_EVERY,
+                                 ckpt_dir=f"{tmp}/sup", on_step=fail_once,
+                                 **kw)
+                attempts[-1]["history"] = hist
+                return SUPERVISED_STEPS
+
+            failed = np.ceil(kfleet.controller.x_current * ELASTIC_FAILED)
+            replans = []
+
+            def replan_shards(old):
+                plan = kfleet.replan_after_failure(failed)
+                replans.append({"from": old, "to": plan.mesh_shape[0],
+                                "chips": plan.total_chips})
+                return plan.mesh_shape[0]
+
+            sup = TrainingSupervisor(SupervisorConfig(), f"{tmp}/sup")
+            final = sup.run(train_fn, total_steps=SUPERVISED_STEPS,
+                            initial_shards=kern[0][1].mesh_shape[0],
+                            replan_shards=replan_shards)
+        resumed = attempts[-1].get("history", [])
+        want = {h["step"]: h["loss"] for h in straight}
+        diffs = [abs(h["loss"] - want[h["step"]]) / abs(want[h["step"]])
+                 for h in resumed]
+        rec["supervisor"] = {
+            "arch": small.name, "steps": SUPERVISED_STEPS,
+            "ckpt_every": SUPERVISED_EVERY, "fail_at": SUPERVISED_FAIL,
+            "final_step": final, "restarts": sup.restarts,
+            "events": [vars(e) for e in sup.events], "replans": replans,
+            "attempts": [{k: a[k] for k in ("start_step", "num_shards")}
+                         for a in attempts],
+            "resumed_steps": [h["step"] for h in resumed],
+            "resumed_loss_rel": diffs, "tol": MESH_TOL,
+            "seconds": time.perf_counter() - t0}
+        if not (final == SUPERVISED_STEPS and sup.restarts == 1
+                and [e.step for e in sup.events] == [SUPERVISED_FAIL - 1]
+                and [h["step"] for h in resumed]
+                == list(range(SUPERVISED_FAIL, SUPERVISED_STEPS))
+                and max(diffs) <= MESH_TOL):
+            raise AssertionError(f"distributed: the supervised run failed "
+                                 f"its gates: {rec['supervisor']}")
+    finally:
+        dist.destroy_process_group()
+    return rec, rows
 
 
 def scenario_checks(dev, ops) -> dict:
@@ -3776,6 +4168,14 @@ def main() -> int:
     train_rec = train_checks(args.seed, dev, (ops, fops, dops, sops))
     emit({"phase": "train", "seconds": time.perf_counter() - t0,
           **train_rec})
+
+    # ---- distributed: the substrate in a world of one over NCCL ---------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_rec, dist_rows = distributed_checks(args.seed, dev, ops, ref)
+    emit({"phase": "distributed", "seconds": time.perf_counter() - t0,
+          **dist_rec})
+    new_shapes.extend(dist_rows)
 
     # ---- the closing lines ---------------------------------------------
     kernels = []

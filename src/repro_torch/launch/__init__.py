@@ -1,1 +1,3 @@
-"""Step functions of the port (``steps``)."""
+"""Launchers of the port: the step functions (``steps``), the training
+loop (``train``), device meshes (``mesh``) and the serving routes'
+checks (``routes``)."""

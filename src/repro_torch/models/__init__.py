@@ -13,7 +13,7 @@ from .attention import KVCache
 from .mamba import MambaCache
 from .rwkv import RWKVCache
 from .transformer import (decode_step, forward, init_caches, init_model,
-                          loss_fn, prefill)
+                          loss_fn, param_axes, prefill)
 
 __all__ = ["KVCache", "MambaCache", "RWKVCache", "decode_step", "forward",
-           "init_caches", "init_model", "loss_fn", "prefill"]
+           "init_caches", "init_model", "loss_fn", "param_axes", "prefill"]

@@ -26,8 +26,11 @@ Differences from the reference: the KV cache is written in place (the
 functions return the cache they were given); ``_chunked_flash`` skips the
 KV chunks that lie wholly after a Q chunk (the reference scans them under
 a mask that makes each an exact no-op: p = 0, corr = 1);
-``distributed.sharding.constrain`` is the identity on one device and is
-dropped.
+the reference's ``distributed.sharding.constrain`` calls place its
+activations on the mesh; the port's model code runs on plain tensors (the
+model gathers each layer's parameters whole where it reads them), where
+``repro_torch.distributed.sharding.constrain`` is the identity, so they
+are dropped.
 """
 from __future__ import annotations
 
@@ -43,6 +46,13 @@ from .layers import apply_rope, rope_tables
 from .param import dense_init, zeros_init
 
 NEG_INF = -1e30
+# logical sharding axes of init_attention's leaves
+ATTENTION_AXES = {"wq": ("embed", "heads", None),
+                  "wk": ("embed", "kv_heads", None),
+                  "wv": ("embed", "kv_heads", None),
+                  "wo": ("heads", None, "embed"),
+                  "bq": ("heads", None), "bk": ("kv_heads", None),
+                  "bv": ("kv_heads", None)}
 
 
 def init_attention(gen, cfg, dtype, device):

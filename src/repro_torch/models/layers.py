@@ -22,6 +22,14 @@ from .param import dense_init, ones_init
 # ---------------------------------------------------------------------------
 
 
+# logical sharding axes of each init function's leaves (the reference's
+# Boxed axes; ``transformer.param_axes`` pairs them with the init's tree)
+NORM_AXES = {"scale": ("act_embed",)}
+EMBED_AXES = {"table": ("vocab", "embed")}
+FFN_AXES = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed"),
+            "w_gate": ("embed", "mlp")}
+
+
 def init_rmsnorm(d: int, dtype, device):
     return {"scale": ones_init((d,), dtype, device)}
 

@@ -7,8 +7,11 @@ Decode carries ``MambaCache(conv (B, d_conv-1, d_inner), ssm (B, d_inner,
 N))``; each call returns a new cache (the reference's are immutable too).
 The reference computes the scan with ``jax.lax.associative_scan`` in jnp,
 not in a Pallas kernel, so this is plain PyTorch on every device.
-``distributed.sharding.constrain`` is the identity on one device and is
-dropped. Under autograd the chunk body runs under
+The reference's ``distributed.sharding.constrain`` calls place its
+activations on the mesh; the port's model code runs on plain tensors (the
+model gathers each layer's parameters whole where it reads them), where
+``repro_torch.distributed.sharding.constrain`` is the identity, so they
+are dropped. Under autograd the chunk body runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``: the scan's
 per-level values are recomputed in the backward instead of kept), and the
 chunk scan steps out of place, since the backward needs the values an
@@ -24,6 +27,14 @@ import torch.nn.functional as F
 
 from ..remat import maybe_checkpoint
 from .param import dense_init, ones_init, zeros_init
+
+# logical sharding axes of init_mamba's leaves
+MAMBA_AXES = {"in_proj": ("embed", "mamba_inner"),
+              "conv_w": (None, "mamba_inner"), "conv_b": ("mamba_inner",),
+              "x_proj": ("mamba_inner", None),
+              "dt_proj": (None, "mamba_inner"), "dt_bias": ("mamba_inner",),
+              "A_log": ("mamba_inner", None), "D": ("mamba_inner",),
+              "out_proj": ("mamba_inner", "embed")}
 
 
 class MambaCache(NamedTuple):

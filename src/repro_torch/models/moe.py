@@ -3,7 +3,11 @@ scatter dispatch with capacity, top-k routing, optional shared experts, and
 the load-balancing auxiliary loss.
 
 The reference's sharding constraints (experts over the model axis, rows
-over data) are the identity on one device and are dropped; its 16-way
+over data) place its activations, and the port's tensors are plain, so
+they are dropped (``distributed.sharding.constrain`` is the identity on a
+plain tensor); the launcher's data-parallel step runs each rank on its
+rows, and the aux loss's shares and the dropless test read the whole
+batch through ``sharding.batch_mean`` / ``batch_shards``. Its 16-way
 segmented cumsum, there to keep the long cumsum local to a sequence shard,
 is the same integer result as the flat cumsum written here.
 """
@@ -14,8 +18,16 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import _act, ffn, init_ffn
+from ..distributed.sharding import batch_mean, batch_shards
+from .layers import FFN_AXES, _act, ffn, init_ffn
 from .param import dense_init
+
+# logical sharding axes of init_moe's leaves
+MOE_AXES = {"router": ("embed", None),
+            "w_up": ("expert", "embed", "mlp"),
+            "w_down": ("expert", "mlp", "embed"),
+            "w_gate": ("expert", "embed", "mlp"),
+            "shared": FFN_AXES}
 
 
 def init_moe(gen, cfg, dtype, device):
@@ -86,10 +98,12 @@ def route(p, cfg, x: torch.Tensor, no_drop: bool) -> Routing:
 
 
 def aux_loss(cfg, routing: Routing) -> torch.Tensor:
-    """Switch load-balancing loss: weight E sum(mean prob x top-1 share)."""
+    """Switch load-balancing loss: weight E sum(mean prob x top-1 share),
+    the means over the whole batch where ranks hold slices of it."""
     E = cfg.n_experts
-    me = routing.probs.mean(dim=(0, 1))
-    ce = F.one_hot(routing.expert_idx[..., 0], E).float().mean(dim=(0, 1))
+    me = batch_mean(routing.probs.mean(dim=(0, 1)))
+    ce = batch_mean(F.one_hot(routing.expert_idx[..., 0],
+                              E).float().mean(dim=(0, 1)))
     return cfg.router_aux_weight * E * (me * ce).sum()
 
 
@@ -97,11 +111,12 @@ def moe_ffn(p, cfg, x: torch.Tensor, no_drop: bool = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux float32 scalar). ``no_drop``
     defaults to B S K <= 4096 (decode and small batches), as in the
-    reference."""
+    reference, B being the whole batch's rows where ranks hold slices of
+    it."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     if no_drop is None:
-        no_drop = B * S * K <= 4096
+        no_drop = B * batch_shards() * S * K <= 4096
     r = route(p, cfg, x, no_drop)
     C, A = r.capacity, S * K
 

@@ -2,9 +2,13 @@
 ``repro.models.param``.
 
 Parameters are plain tensors in nested dictionaries with the reference's
-names and shapes. The reference's ``Boxed`` / ``split`` / ``prefix_axes``
-carry logical sharding axes; they wait for the distributed slice, and on
-one device a parameter is just its value.
+names and shapes. Where the reference's ``Boxed`` / ``split`` /
+``prefix_axes`` carry logical sharding axes on every leaf, each model
+module here keeps a table of its init function's axes beside it
+(``layers.NORM_AXES``, ``attention.ATTENTION_AXES``, ...), and
+``transformer.param_axes(cfg)`` pairs the tables with the tree that
+``init_model`` builds on the meta device, raising if a leaf has no axes or
+axes of another rank: the init is the one source of the tree.
 """
 from __future__ import annotations
 

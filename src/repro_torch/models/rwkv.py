@@ -18,8 +18,11 @@ functions here pass on:
 Decode is the same scan at S = 1 (chunk 1). The cache is threaded as in the
 reference: the time mix writes ``shift_tm`` and ``wkv``, the channel mix
 ``shift_cm``; each returns a new ``RWKVCache`` (the reference's are
-immutable too). ``distributed.sharding.constrain`` is the identity on one
-device and is dropped.
+immutable too). The reference's ``distributed.sharding.constrain`` calls place its
+activations on the mesh; the port's model code runs on plain tensors (the
+model gathers each layer's parameters whole where it reads them), where
+``repro_torch.distributed.sharding.constrain`` is the identity, so they
+are dropped.
 """
 from __future__ import annotations
 
@@ -30,6 +33,16 @@ import torch.nn.functional as F
 
 from ..kernels.rwkv6_scan.ops import rwkv6_scan
 from .param import const_init, dense_init, ones_init
+
+# logical sharding axes of the time and channel mixes' leaves
+TIME_MIX_AXES = {"mix": (None, "act_embed"), "w_base": ("act_embed",),
+                 "w_lora_a": ("embed", None), "w_lora_b": (None, "embed"),
+                 "wr": ("embed", "mlp"), "wk": ("embed", "mlp"),
+                 "wv": ("embed", "mlp"), "wg": ("embed", "mlp"),
+                 "u": ("rwkv_heads", None), "wo": ("mlp", "embed"),
+                 "ln_x": ("act_embed",)}
+CHANNEL_MIX_AXES = {"mix": (None, "act_embed"), "wk": ("embed", "mlp"),
+                    "wv": ("mlp", "embed"), "wr": ("embed", "act_embed")}
 
 
 class RWKVCache(NamedTuple):

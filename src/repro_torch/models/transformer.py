@@ -23,6 +23,12 @@ plain route (``use_kernel=False``), as the reference's defaults to
 (``repro_torch.remat``): "full" keeps only its input, "dots" also the
 weight products' outputs, "none" everything; the reference checkpoints its
 scanned group body the same ways.
+
+Parameters held as DTensors (the launcher's mesh step) are gathered whole
+where they are read: each layer's leaves at the top of its body, inside
+its remat, so "full" gathers them again in the backward instead of
+keeping them (``distributed.sharding.gather``, the identity on plain
+tensors).
 """
 from __future__ import annotations
 
@@ -33,14 +39,16 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import batch_mean, gather
 from ..remat import remat
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .attention import KVCache
-from .layers import (embed, ffn, init_embedding, init_ffn, init_rmsnorm,
-                     rmsnorm, rope_tables, unembed)
+from .layers import (EMBED_AXES, FFN_AXES, NORM_AXES, embed, ffn,
+                     init_embedding, init_ffn, init_rmsnorm, rmsnorm,
+                     rope_tables, unembed)
 from .mamba import MambaCache
 from .param import dense_init
 from .rwkv import RWKVCache
@@ -110,6 +118,48 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
         params["frontend_proj"] = dense_init(
             generator, (cfg.d_frontend, D), dtype, dev)
     return params
+
+
+_BLOCK_AXES = {"attn": attn_mod.ATTENTION_AXES, "mamba": mamba_mod.MAMBA_AXES,
+               "rwkv": rwkv_mod.TIME_MIX_AXES}
+_FFN_AXES = {"dense": FFN_AXES, "moe": moe_mod.MOE_AXES,
+             "rwkv_cm": rwkv_mod.CHANNEL_MIX_AXES}
+
+
+def _pair_axes(table, tree, where: str):
+    """``tree``'s structure with each leaf replaced by its axes from
+    ``table`` (nested dicts and lists); raises if a leaf has none or axes
+    of another rank."""
+    if isinstance(tree, dict):
+        missing = set(tree) - set(table)
+        if missing:
+            raise KeyError(f"param_axes: no axes for {where}."
+                           f"{sorted(missing)}")
+        return {k: _pair_axes(table[k], v, f"{where}.{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pair_axes(t, v, f"{where}[{i}]")
+                for i, (t, v) in enumerate(zip(table, tree))]
+    if not isinstance(table, tuple) or len(table) != tree.ndim:
+        raise ValueError(f"param_axes: {where} has shape "
+                         f"{tuple(tree.shape)} but axes {table}")
+    return table
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical sharding axes of ``init_model(cfg, ...)``'s tree, keyed
+    and ordered as it is: a tuple of axis names (or None) per leaf, one per
+    dimension. The reference's axes, per layer: its stacked leading
+    "layers" axis, which every rule set maps to None, is not there. Built
+    from the tree that ``init_model`` makes on the meta device (no memory)
+    and the init functions' tables."""
+    tree = init_model(cfg, torch.Generator(), "meta")
+    table = {"embed": EMBED_AXES, "final_norm": NORM_AXES,
+             "unembed": EMBED_AXES, "frontend_proj": ("frontend", "embed"),
+             "layers": [{"norm1": NORM_AXES, "mix": _BLOCK_AXES[blk],
+                         "norm2": NORM_AXES, "ffn": _FFN_AXES[fk]}
+                        for blk, fk in layer_kinds(cfg)]}
+    return _pair_axes(table, tree, "params")
 
 
 def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
@@ -198,6 +248,7 @@ def _run_layers(cfg, params, x, positions, mode, caches=None, pos=None,
 
         def one_layer(x, layer=layer, blk=blk, fk=fk, cache_in=cache_in,
                       i=i):
+            layer = gather(layer)
             h = rmsnorm(layer["norm1"], x, cfg.norm_eps)
             block = partial(_apply_block, layer["mix"], cfg, blk, h,
                             positions, mode, cache_in, rope, pos, valid)
@@ -225,17 +276,17 @@ def _embed_inputs(cfg, params, batch):
     n_frontend_tokens positions replaced by batch["frontend_embeds"]
     (B, n_frontend_tokens, d_frontend) projected by frontend_proj."""
     _check_ported(cfg)
-    x = embed(params["embed"], batch["tokens"])
+    x = embed(gather(params["embed"]), batch["tokens"])
     if cfg.frontend == "vision":
         fe = batch["frontend_embeds"].to(x.dtype)
-        proj = fe @ params["frontend_proj"]
+        proj = fe @ gather(params["frontend_proj"])
         x = torch.cat([proj, x[:, cfg.n_frontend_tokens:, :]], dim=1)
     return x.to(torch_dtype(cfg.dtype))
 
 
 def _logits(cfg, params, x):
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params.get("unembed", params["embed"]), x)
+    x = rmsnorm(gather(params["final_norm"]), x, cfg.norm_eps)
+    return unembed(gather(params.get("unembed", params["embed"])), x)
 
 
 def forward(cfg: ModelConfig, params, batch,
@@ -260,14 +311,16 @@ def loss_fn(cfg: ModelConfig, params, batch,
     chunk's (B, chunk, V) logits in float32 (the reference's
     ``preferred_element_type=float32``), which bounds the logits buffer; S
     must be a multiple of the chunk. ``use_kernel`` defaults to False: the
-    kernels have no backward."""
+    kernels have no backward. Under a mesh whose ranks hold slices of the
+    batch (``launch.mesh.mesh_context``), the cross-entropy and the MoE
+    aux loss are those of the whole batch (``sharding.batch_mean``)."""
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     x, aux = _run_layers(cfg, params, x, positions, "train",
                          use_kernel=use_kernel)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    table = params.get("unembed", params["embed"])["table"]
+    x = rmsnorm(gather(params["final_norm"]), x, cfg.norm_eps)
+    table = gather(params.get("unembed", params["embed"])["table"])
     labels = batch["labels"].long()
     chunk = min(cfg.loss_chunk, S)
     if S % chunk:
@@ -280,7 +333,8 @@ def loss_fn(cfg: ModelConfig, params, batch,
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels[:, sl, None])[..., 0]
         total = total + (logz - gold).sum()
-    loss = total / (B * S)
+    # the mean over the whole batch where ranks hold slices of it
+    loss = batch_mean(total / (B * S))
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     return loss + aux, {"xent": loss, "aux": aux}
 

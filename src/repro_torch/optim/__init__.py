@@ -1,7 +1,7 @@
-"""Optimizers — port of ``repro.optim``: AdamW (``optim.adamw``). The
-reference's ``grad_compress`` serves the data-parallel all-reduce and waits
-for ``distributed/``."""
-from . import adamw
+"""Optimizers — port of ``repro.optim``: AdamW (``optim.adamw``) and the
+int8 gradient compression of the data-parallel all-reduce
+(``optim.grad_compress``)."""
+from . import adamw, grad_compress
 from .adamw import AdamWConfig, AdamWState
 
-__all__ = ["AdamWConfig", "AdamWState", "adamw"]
+__all__ = ["AdamWConfig", "AdamWState", "adamw", "grad_compress"]

@@ -10,13 +10,16 @@ not fit one card beside the gradients and the moments. The arithmetic is
 the reference's, in its order: the clip scale, m and v, the bias
 corrections, the decoupled decay term, lr times the step.
 
-``abstract_state`` and ``state_axes`` serve only the reference's dry-run
-sharding and are not ported.
+``state_axes`` gives the moments the parameters' logical axes (the
+launcher's mesh shards them as it shards the parameters). ``global_norm``
+reads DTensor gradients shard by shard; ``update`` then takes that norm
+from outside, given the local shards. ``abstract_state`` serves the
+reference's dry-run and is not ported.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Iterator, NamedTuple, Tuple
+from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,13 +47,17 @@ def tree_leaves(tree) -> list:
     return [leaf for _, _, leaf in _slots(tree)]
 
 
-def tree_map(fn: Callable, tree):
-    """The tree with every leaf replaced by fn(leaf)."""
+def tree_map(fn: Callable, tree, *rest):
+    """The tree with every leaf replaced by fn(leaf, *the same leaf of each
+    tree in ``rest``), which share ``tree``'s structure down to its
+    leaves."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def _slots(tree) -> Iterator[Tuple[Any, Any, Any]]:
@@ -84,6 +91,11 @@ def init(params) -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
+def state_axes(param_axes) -> AdamWState:
+    """Logical axes for the optimizer state (mirror of the params)."""
+    return AdamWState(step=None, m=param_axes, v=param_axes)
+
+
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup over cfg.warmup_steps, then a cosine from cfg.lr down
     to cfg.min_lr_frac of it at cfg.total_steps; float32."""
@@ -98,22 +110,39 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of their float32 sums of squares, the
-    leaves added in order."""
-    total = 0
+    leaves added in order. A DTensor leaf counts each of its elements once:
+    this rank adds its shard's sum divided by the number of ranks that hold
+    the same shard (the mesh dimensions it is replicated over), and the
+    ranks' totals are summed over every dimension of the mesh."""
+    from torch.distributed.tensor import DTensor
+    total, mesh = 0, None
     for x in tree_leaves(tree):
-        total = total + x.float().square().sum()
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            copies = math.prod(mesh.size(i) for i, p in
+                               enumerate(x.placements) if p.is_replicate())
+            total = total + x.to_local().float().square().sum() / copies
+        else:
+            total = total + x.float().square().sum()
+    if mesh is not None:
+        for i in range(mesh.ndim):
+            if mesh.size(i) > 1:
+                torch.distributed.all_reduce(total, group=mesh.get_group(i))
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state: AdamWState, params
+def update(cfg: AdamWConfig, grads, state: AdamWState, params,
+           grad_norm: Optional[torch.Tensor] = None
            ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step. Updates ``params`` and the moments of ``state`` in
     place, leaf by leaf, and sets each leaf of ``grads`` to None once its
-    parameter is updated (the grads tree is consumed). Returns (params,
-    new_state, {"grad_norm", "lr"}): the same parameter tree and moments,
-    a new step counter."""
-    gnorm = global_norm(grads)
+    parameter is updated (the grads tree is consumed). ``grad_norm`` is the
+    whole gradient's global norm where the trees hold this rank's shards
+    (default: ``global_norm(grads)``). Returns (params, new_state,
+    {"grad_norm", "lr"}): the same parameter tree and moments, a new step
+    counter."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

@@ -26,3 +26,34 @@ def make_toy_problem(seed=0, m=3, n=12, p=2, alpha=0.02, beta3=10.0,
                                   beta3=beta3, gamma=gamma, device=dev)
     return AllocationProblem.create(K, E, c, d, params=params,
                                     ub_default=100.0, device=dev)
+
+
+def spawn_world(fn, world_size: int, workdir, *args) -> None:
+    """Run ``fn(rank, world_size, *args)`` in ``world_size`` spawned CPU
+    processes joined in one gloo process group, which meets over a
+    ``file://`` store in ``workdir`` (no port, so runs in parallel do not
+    collide). ``fn`` must be importable by name (a module-level function);
+    it hands its results back through files in ``workdir``. Raises if a
+    rank fails."""
+    import os
+
+    import torch.multiprocessing as mp
+    store = os.path.join(str(workdir), f"store_{os.getpid()}_{id(fn)}")
+    if os.path.exists(store):
+        os.remove(store)
+    mp.spawn(_spawned, args=(fn, world_size, store, args),
+             nprocs=world_size, join=True)
+
+
+def _spawned(rank, fn, world_size, store, args):
+    import torch
+    import torch.distributed as dist
+
+    from .launch.mesh import init_distributed
+    torch.set_num_threads(1)
+    init_distributed("cpu", init_method=f"file://{store}", rank=rank,
+                     world_size=world_size)
+    try:
+        fn(rank, world_size, *args)
+    finally:
+        dist.destroy_process_group()
