@@ -353,6 +353,19 @@ Phases, one JSON object per line:
              checkpoint of qwen1.5-4b at full width holds about 47 GB
              (3.95 B parameters and both moments in float32), too long to
              write within the smoke's time.
+16. dryrun — the dry run (``python -m repro_torch.launch.dryrun``: a
+             step counted on meta tensors in a fake world of ranks) against
+             the card (``dryrun_checks``; its two fake worlds run in
+             processes of their own, on the host alone, started beside the
+             build phase (``FakeWorlds``)): (a) the reference test's cell,
+             rwkv6-7b x decode_32k on the 16x16 mesh, its record held to
+             tests/distributed/test_dryrun_cell.py's
+             schema and 16 GiB bound; (b) the distributed phase's 2-layer
+             step (8 x 128, float32, one device) on the card under
+             FlopCounterMode against the dry run's count of it on a fake
+             1x1 world (equal FLOPs), the dry run's peak within 25% of
+             max_memory_allocated, and the timed steps no faster than
+             their FLOPs at 67 TFLOP/s.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -361,11 +374,13 @@ without a CUDA device the script exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -538,6 +553,35 @@ COMPRESS_SHAPE, COMPRESS_STEPS = (2560, 6912), 50
 MESH_LAYERS, MESH_STEPS, MESH_TOL = 2, 3, 2e-4
 NOISE_LEAVES = ("bk",)
 SUPERVISED_STEPS, SUPERVISED_EVERY, SUPERVISED_FAIL = 6, 2, 3
+# the dryrun phase: (a) the reference test's dry-run cell
+# (tests/distributed/test_dryrun_cell.py) through ``python -m
+# repro_torch.launch.dryrun`` on the 16x16 mesh, in a process of its own
+# (its fake world of 256 ranks must not meet this process's NCCL world),
+# held to that test's schema and its DRYRUN_HBM bound; (b) the distributed
+# phase's step (TRAIN_ARCH at full width, MESH_LAYERS layers, TRAIN_BATCH
+# x TRAIN_SEQ, float32, one device) counted on the card against the dry
+# run's count of it on a fake 1x1 world: equal FLOPs, the dry run's peak
+# live bytes within DRYRUN_MEM_TOL of max_memory_allocated over
+# DRYRUN_STEPS timed steps, and no step faster than its FLOPs at
+# F32_FLOPS_PER_S (TF32 is off)
+DRYRUN_ARCH, DRYRUN_SHAPE = "rwkv6-7b", "decode_32k"
+DRYRUN_HBM, DRYRUN_MEM_TOL, DRYRUN_STEPS = 16 * 2**30, 0.25, 2
+DRYRUN_KEYS = ("flops", "bytes_accessed", "collective_bytes",
+               "bytes_per_device", "roofline", "model_flops_per_device")
+# (b)'s count on the fake 1x1 world, run as ``python -c``: arch, layers,
+# batch, seq; prints count_step's JSON
+DRYRUN_COUNT = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.shapes import ShapeSpec
+arch, layers, batch, seq = sys.argv[1], *map(int, sys.argv[2:5])
+print(json.dumps(dryrun.count_on_fake_world(
+    get_config(arch).scaled(n_layers=layers),
+    ShapeSpec("smoke_train", "train", seq, batch), 1,
+    lambda: make_mesh((1, 1), ("data", "model"), "cpu"))))
+"""
 # the bucketed fleet: tenants spread over instances[::k] of the catalog
 BUCKET_TENANTS, BUCKET_STRIDES = 32, (1, 2, 8, 40)
 # base demands of examples/fleet_replay.py's four tenants, by trace kind
@@ -2365,6 +2409,188 @@ def distributed_checks(seed: int, dev, ops, ref) -> tuple:
     return rec, rows
 
 
+class FakeWorlds:
+    """The dryrun phase's two fake worlds, each in a process of its own on
+    the host alone (no card visible to them; a fake world must not meet
+    this process's NCCL world): (a) ``python -m repro_torch.launch.dryrun``
+    on DRYRUN_ARCH x DRYRUN_SHAPE, 16x16 mesh, into a temporary directory;
+    (b) DRYRUN_COUNT, the distributed phase's step counted on a fake 1x1
+    world. ``main`` starts them beside the build phase: a fresh interpreter
+    takes most of their ~20 s to import torch and DTensor, which the
+    card's phases need not wait for. A thread per process reads its
+    output and stamps its end; ``stop`` (at exit) kills what still
+    runs."""
+
+    def __init__(self, root: Path):
+        import tempfile
+        import threading
+        self.tmp = tempfile.TemporaryDirectory()
+        env = {**os.environ, "PYTHONPATH": str(root / "src"),
+               "CUDA_VISIBLE_DEVICES": ""}
+        self.t0 = time.perf_counter()
+        self.procs = [subprocess.Popen(
+            [sys.executable, *argv], cwd=root, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE) for argv in (
+                ["-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+                 "--shape", DRYRUN_SHAPE, "--mesh", "single", "--out-dir",
+                 self.tmp.name],
+                ["-c", DRYRUN_COUNT, TRAIN_ARCH, str(MESH_LAYERS),
+                 str(TRAIN_BATCH), str(TRAIN_SEQ)])]
+        self.boxes = [{} for _ in self.procs]
+        self.threads = [threading.Thread(target=self._collect, args=(p, b),
+                                         daemon=True)
+                        for p, b in zip(self.procs, self.boxes)]
+        for t in self.threads:
+            t.start()
+
+    def _collect(self, proc, box):
+        box["out"], box["err"] = proc.communicate()
+        box["process_s"] = time.perf_counter() - self.t0
+
+    def results(self, timeout: float = 600.0):
+        """(a)'s record, (b)'s counts, and each process's seconds from its
+        start to its end; raises if one failed."""
+        for t in self.threads:
+            t.join(timeout)
+        for p, box in zip(self.procs, self.boxes):
+            if p.returncode != 0 or "out" not in box:
+                raise AssertionError(f"dryrun: {p.args[1:4]} exited "
+                                     f"{p.returncode}: "
+                                     f"{box.get('out', '')[-2000:]}"
+                                     f"{box.get('err', '')[-2000:]}")
+        cell = json.loads((Path(self.tmp.name) / f"{DRYRUN_ARCH}__"
+                           f"{DRYRUN_SHAPE}__16x16.json").read_text())
+        meta = json.loads(self.boxes[1]["out"].strip().splitlines()[-1])
+        return (cell, self.boxes[0]["out"].strip().splitlines(), meta,
+                [b["process_s"] for b in self.boxes])
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        self.tmp.cleanup()
+
+
+def dryrun_checks(seed: int, dev, worlds: FakeWorlds) -> dict:
+    """The dry run (``repro_torch.launch.dryrun``), which counts a step on
+    meta tensors in a fake world, against the card. ``worlds``
+    (``FakeWorlds``) runs both fake worlds; this waits for them after
+    (b)'s steps on the card:
+
+    (a) DRYRUN_ARCH x DRYRUN_SHAPE on the 16x16 mesh through the command
+        line: exit 0, and its record held to
+        ``tests/distributed/test_dryrun_cell.py``'s schema (status ok, 256
+        devices, DRYRUN_KEYS, ``roofline.dominant``) and bytes_per_device
+        under DRYRUN_HBM.
+    (b) the distributed phase's one-device step on the card: one step of
+        first use, DRYRUN_STEPS timed steps (their peak
+        ``torch.cuda.max_memory_allocated`` less what was allocated when
+        the phase began), one under ``FlopCounterMode``; and the dry run's
+        count of the same step on a fake 1x1 world. Fails unless the FLOPs
+        agree op by op (an SDPA op counted apart where the card and meta
+        pick other backends is named and left out, the rest held equal),
+        the dry run's peak lies within DRYRUN_MEM_TOL of the card's, and
+        no timed step beats its FLOPs at F32_FLOPS_PER_S
+        (``share_of_f32_bound`` <= 1)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.dryrun import flops_by_op
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw
+
+    rec = {}
+    t_start = time.perf_counter()
+    # ---- (b) the step on the card -----------------------------------------
+    # what earlier phases still hold is not the step's
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=MESH_LAYERS)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    state = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=20, total_steps=10))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=seed))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                data.global_batch(i).items()}
+               for i in range(DRYRUN_STEPS + 2)]
+    step(params, state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for b in batches[1:-1]:
+        t0 = time.perf_counter()
+        step(params, state, b)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step(params, state, batches[-1])
+    cuda_flops, cuda_ops = counter.get_total_flops(), flops_by_op(counter)
+    del params, state, step, batches
+    card_s = time.perf_counter() - t_start
+    # ---- the fake worlds ----------------------------------------------------
+    cell, cell_lines, meta, process_s = worlds.results()
+
+    # ---- (a) the reference test's cell --------------------------------------
+    r = cell.get("roofline", {})
+    rec["cell"] = {
+        "arch": DRYRUN_ARCH, "shape": DRYRUN_SHAPE, "mesh": "16x16",
+        "status": cell["status"], "line": cell_lines,
+        "process_s": process_s[0],
+        **{k: cell.get(k) for k in ("devices", "rows", "count_s", "flops",
+                                    "bytes_accessed", "collective_bytes",
+                                    "collectives", "bytes_per_device",
+                                    "memory", "model_flops_per_device",
+                                    "params_numel", "off_device_bytes")},
+        "roofline": r}
+    if not (cell["status"] == "ok" and cell["devices"] == 256
+            and all(k in cell for k in DRYRUN_KEYS)
+            and r.get("dominant") in ("compute_s", "memory_s",
+                                      "collective_s")
+            and cell["bytes_per_device"] < DRYRUN_HBM):
+        raise AssertionError(f"dryrun: the cell's record fails the "
+                             f"reference test's schema: {rec['cell']}")
+
+    # ---- (b) the count against the card --------------------------------------
+    ops = sorted(set(cuda_ops) | set(meta["flops_by_op"]))
+    differ = {op: [cuda_ops.get(op, 0), meta["flops_by_op"].get(op, 0)]
+              for op in ops
+              if cuda_ops.get(op, 0) != meta["flops_by_op"].get(op, 0)}
+    apart = [op for op in differ if "scaled_dot_product" in op]
+    bound_s = cuda_flops / F32_FLOPS_PER_S
+    rec["count"] = {
+        "arch": TRAIN_ARCH, "layers": MESH_LAYERS,
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "dtype": cfg.dtype,
+        "cuda_flops": cuda_flops, "meta_flops": meta["flops"],
+        "flops_by_op": cuda_ops, "ops_differ": differ,
+        "ops_apart": apart,
+        "meta_peak_bytes": meta["peak_bytes"], "cuda_peak_bytes": peak,
+        "cuda_base_bytes": base, "card_s": card_s,
+        "meta_process_s": process_s[1],
+        "worlds_started_s_before": t_start - worlds.t0,
+        "peak_ratio": meta["peak_bytes"] / peak,
+        "meta_memory": {k: meta[k] for k in ("argument_bytes",
+                                             "output_bytes", "temp_bytes",
+                                             "alias_bytes")},
+        "meta_count_s": meta["count_s"], "step_s": seconds,
+        "f32_bound_s": bound_s,
+        "share_of_f32_bound": bound_s / min(seconds),
+        "share_means": "the f32 bound over the fastest step: at most 1, "
+                       "no step beat its FLOPs at 67 TFLOP/s"}
+    if not (cuda_flops > 0 and set(differ) == set(apart)
+            and abs(rec["count"]["peak_ratio"] - 1) <= DRYRUN_MEM_TOL
+            and rec["count"]["share_of_f32_bound"] <= 1.0):
+        raise AssertionError(f"dryrun: the count parts from the card: "
+                             f"{rec['count']}")
+    return rec
+
+
 def scenario_checks(dev, ops) -> dict:
     """The paper's one-shot comparison on the card: ``optimize`` on s1-s5
     over the full catalog, with the alloc_objective kernel and plain,
@@ -3691,6 +3917,9 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    # the dryrun phase's fake worlds run on the host beside the build
+    worlds = FakeWorlds(Path(__file__).resolve().parent)
+    atexit.register(worlds.stop)
     import numpy as np
     import repro_torch  # noqa: F401  (sets the TF32 flags)
     import repro_torch.fleet.replay as replay_mod
@@ -4176,6 +4405,13 @@ def main() -> int:
     emit({"phase": "distributed", "seconds": time.perf_counter() - t0,
           **dist_rec})
     new_shapes.extend(dist_rows)
+
+    # ---- dryrun: the dry run's counts, a cell and against the card -------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry_rec = dryrun_checks(args.seed, dev, worlds)
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t0,
+          **dry_rec})
 
     # ---- the closing lines ---------------------------------------------
     kernels = []

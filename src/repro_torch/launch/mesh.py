@@ -4,7 +4,8 @@ importing this module starts nothing.
 
 ``init_distributed`` starts the default process group: NCCL for a CUDA
 device, gloo for the CPU, and nothing else (no fallback from one to the
-other). Under ``torchrun`` it reads the rendezvous from the environment;
+other; a running "fake" group, the dry run's, is taken as it is). Under
+``torchrun`` it reads the rendezvous from the environment;
 outside it a world of one meets over an in-memory store (no socket); the
 multi-rank CPU tests pass a ``file://`` ``init_method``.
 """
@@ -40,7 +41,9 @@ def init_distributed(device: DeviceLike = None, *,
     ``init_method`` with ``rank`` and ``world_size`` meet at that address;
     else under torchrun (RANK and WORLD_SIZE set) the environment's;
     else a world of one over an in-memory store. A running group of
-    another backend raises."""
+    another backend raises, except torch's "fake" backend, which moves no
+    data and serves any device (the dry run's world,
+    ``launch.dryrun.fake_world``)."""
     dev = resolve_device(device)
     backend = _backend(dev)
     if dev.type == "cuda" and dev.index is None:
@@ -49,7 +52,7 @@ def init_distributed(device: DeviceLike = None, *,
         torch.cuda.set_device(dev)
     if dist.is_initialized():
         running = dist.get_backend()
-        if running != backend:
+        if running != backend and running != "fake":
             raise RuntimeError(f"a {running} process group is running; "
                                f"{dev.type} tensors need {backend}")
         return dev

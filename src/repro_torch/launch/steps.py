@@ -8,11 +8,11 @@ the kernels have no backward, and a kernel asked to launch under autograd
 raises.
 
 Where the reference jits each step with explicit shardings, these run
-eagerly. ``make_train_step(..., mesh=)`` is the train step on a ("data",
-"model") mesh, the parameters and moments held as DTensors (see its
-docstring); the serving steps under ``torch.inference_mode()`` (no autograd
-records; the caches are inference tensors). They serve every registered
-config: the dense
+eagerly. With ``mesh=`` (a ("data", "model") or ("pod", "data", "model")
+DeviceMesh) each step runs on a mesh, the parameters held as DTensors
+(see ``make_train_step``'s docstring and the paragraph below); the
+serving steps under ``torch.inference_mode()`` (no autograd records; the caches
+are inference tensors). They serve every registered config: the dense
 and MoE attention models (qwen1.5-4b, nemotron-4-15b, command-r-plus-104b,
 granite-34b, musicgen-medium, mixtral-8x22b, llama4-maverick-400b-a17b),
 the attention/Mamba hybrid (jamba-1.5-large-398b), RWKV6 (rwkv6-7b) and
@@ -20,6 +20,22 @@ the vision model (internvl2-26b, whose prefill batch carries
 ``frontend_embeds`` beside ``tokens``; the batch is passed on unchanged).
 KV caches are written in place; RWKV and Mamba state caches are replaced
 in the list the step returns.
+
+The serving steps on a mesh: the parameters are DTensors placed by
+``sharding.make_shardings(param_axes(cfg), mesh, rules, ...)``, and a step
+runs on this rank's rows of the batch: the ranks of the mesh dimensions
+that ``rules`` give the "batch" axis hold its slices (a rule set that maps
+"batch" to nothing, as ``long_context_rules`` does, leaves every rank the
+whole batch). ``rules`` default to the reference's rule set for the step
+(``sharding.RULESETS``: ``base_rules`` for prefill, ``decode_rules`` for
+decode). As in the train step, the model gathers each layer's leaves
+whole where it reads them (``sharding.gather``) and runs FSDP-style: the
+caches hold this rank's rows, whole along the sequence, and the ranks of
+the other dimensions compute alike. The function is the one-device
+step's on those rows; the MoE FFN's dropless test reads the whole batch
+(``sharding.batch_shards``). The reference's decode rules split the KV
+sequence over "model"; that is sharded compute (tensor and sequence
+parallelism) and is not done here.
 """
 from __future__ import annotations
 
@@ -60,17 +76,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     holds only its shards between steps. The ranks of the "model"
     dimension compute the same thing on the gathered leaves: sharded
     compute over "model" (tensor parallelism) is not done here."""
-    if mesh is not None:
-        from .mesh import mesh_context
-        rules = shd.base_rules(mesh, cfg)
-
-    @contextlib.contextmanager
-    def scope():
-        if mesh is None:
-            yield
-            return
-        with mesh_context(mesh), shd.use_rules(rules):
-            yield
+    scope = _mesh_scope(mesh, shd.base_rules, cfg, None)
 
     def train_step(params, opt_state, batch):
         leaves = adamw.tree_leaves(params)
@@ -105,19 +111,49 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+def _mesh_scope(mesh, default_rules, cfg: ModelConfig, rules):
+    """A context factory: nothing without ``mesh``; else
+    ``launch.mesh.mesh_context(mesh)`` under ``rules`` (default
+    ``default_rules(mesh, cfg)``)."""
+    if mesh is None:
+        return contextlib.nullcontext
+    from .mesh import mesh_context
+    rules = rules if rules is not None else default_rules(mesh, cfg)
+
+    @contextlib.contextmanager
+    def scope():
+        with mesh_context(mesh), shd.use_rules(rules):
+            yield
+
+    return scope
+
+
 def make_prefill_step(cfg: ModelConfig, s_max: int,
-                      use_kernel: Optional[bool] = None):
+                      use_kernel: Optional[bool] = None, mesh=None,
+                      rules=None):
+    """prefill_step(params, batch) -> (last logits (B, V), caches):
+    ``models.prefill`` with a KV capacity of ``s_max``; on ``mesh`` under
+    ``rules`` (default ``base_rules``) as the module docstring says."""
+    scope = _mesh_scope(mesh, shd.base_rules, cfg, rules)
+
     def prefill_step(params, batch):
-        with torch.inference_mode():
+        with torch.inference_mode(), scope():
             return model_prefill(cfg, params, batch, s_max=s_max,
                                  use_kernel=use_kernel)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, use_kernel: Optional[bool] = None):
+def make_decode_step(cfg: ModelConfig, use_kernel: Optional[bool] = None,
+                     mesh=None, rules=None):
+    """serve_step(params, caches, tokens, pos) -> (logits (B, V), caches):
+    one ``models.decode_step`` at position ``pos`` (a Python int); on
+    ``mesh`` under ``rules`` (default ``decode_rules``) as the module
+    docstring says."""
+    scope = _mesh_scope(mesh, shd.decode_rules, cfg, rules)
+
     def serve_step(params, caches, tokens, pos):
-        with torch.inference_mode():
+        with torch.inference_mode(), scope():
             return model_decode_step(cfg, params, caches, tokens, pos,
                                      use_kernel=use_kernel)
 

@@ -12,8 +12,10 @@ have no backward)."""
 from .attention import KVCache
 from .mamba import MambaCache
 from .rwkv import RWKVCache
-from .transformer import (decode_step, forward, init_caches, init_model,
-                          loss_fn, param_axes, prefill)
+from .transformer import (abstract_params, cache_axes, decode_step, forward,
+                          init_caches, init_model, loss_fn, param_axes,
+                          prefill)
 
-__all__ = ["KVCache", "MambaCache", "RWKVCache", "decode_step", "forward",
-           "init_caches", "init_model", "loss_fn", "param_axes", "prefill"]
+__all__ = ["KVCache", "MambaCache", "RWKVCache", "abstract_params",
+           "cache_axes", "decode_step", "forward", "init_caches",
+           "init_model", "loss_fn", "param_axes", "prefill"]

@@ -29,6 +29,10 @@ where they are read: each layer's leaves at the top of its body, inside
 its remat, so "full" gathers them again in the backward instead of
 keeping them (``distributed.sharding.gather``, the identity on plain
 tensors).
+
+``param_axes`` and ``cache_axes`` give the logical sharding axes of the
+parameter tree and of the cache list, per layer; ``abstract_params`` is the
+parameter tree on the meta device with its axes (the dry run's).
 """
 from __future__ import annotations
 
@@ -126,22 +130,28 @@ _FFN_AXES = {"dense": FFN_AXES, "moe": moe_mod.MOE_AXES,
              "rwkv_cm": rwkv_mod.CHANNEL_MIX_AXES}
 
 
-def _pair_axes(table, tree, where: str):
+def _pair_axes(table, tree, where: str, what: str = "param_axes"):
     """``tree``'s structure with each leaf replaced by its axes from
-    ``table`` (nested dicts and lists); raises if a leaf has none or axes
-    of another rank."""
+    ``table`` (nested dicts, lists and NamedTuples); raises, naming
+    ``what``, if a leaf has none or axes of another rank."""
     if isinstance(tree, dict):
         missing = set(tree) - set(table)
         if missing:
-            raise KeyError(f"param_axes: no axes for {where}."
+            raise KeyError(f"{what}: no axes for {where}."
                            f"{sorted(missing)}")
-        return {k: _pair_axes(table[k], v, f"{where}.{k}")
+        return {k: _pair_axes(table[k], v, f"{where}.{k}", what)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_pair_axes(t, v, f"{where}[{i}]")
+        return [_pair_axes(t, v, f"{where}[{i}]", what)
                 for i, (t, v) in enumerate(zip(table, tree))]
+    if hasattr(tree, "_fields"):
+        if type(table) is not type(tree):
+            raise ValueError(f"{what}: {where} is a {type(tree).__name__} "
+                             f"but its axes a {type(table).__name__}")
+        return type(tree)(*(_pair_axes(t, v, f"{where}.{f}", what)
+                            for f, t, v in zip(tree._fields, table, tree)))
     if not isinstance(table, tuple) or len(table) != tree.ndim:
-        raise ValueError(f"param_axes: {where} has shape "
+        raise ValueError(f"{what}: {where} has shape "
                          f"{tuple(tree.shape)} but axes {table}")
     return table
 
@@ -162,6 +172,13 @@ def param_axes(cfg: ModelConfig):
     return _pair_axes(table, tree, "params")
 
 
+def abstract_params(cfg: ModelConfig):
+    """(parameters on the meta device, their logical axes): the tree of
+    ``init_model`` with shapes and dtypes but no memory, and
+    ``param_axes(cfg)`` — the reference's dry-run pair, per layer."""
+    return init_model(cfg, torch.Generator(), "meta"), param_axes(cfg)
+
+
 def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
                 device: DeviceLike = None) -> List:
     """One zeroed cache per layer: a KVCache for an attention layer (s_max
@@ -176,6 +193,26 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
     return [KVCache.zeros(batch, cfg.n_kv_heads, cap, cfg.d_head, dtype, dev)
             if blk == "attn" else state[blk].zeros(batch, cfg, dtype, dev)
             for blk, _ in layer_kinds(cfg)]
+
+
+_KV_AXES = ("batch", "kv_heads", "kv_seq", None)
+_CACHE_AXES = {
+    "attn": KVCache(_KV_AXES, _KV_AXES),
+    "mamba": MambaCache(("batch", None, "mamba_inner"),
+                        ("batch", "mamba_inner", None)),
+    "rwkv": RWKVCache(("batch", "act_embed"), ("batch", "act_embed"),
+                      ("batch", "rwkv_heads", None, None))}
+
+
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of ``init_caches(cfg, ...)``'s list: per layer, its
+    cache's type with a tuple of axis names (or None) per field, one per
+    dimension. The reference's axes, per layer: its stacked leading
+    "layers" axis is not there (as in ``param_axes``). Checked, rank by
+    rank, against the caches ``init_caches`` makes on the meta device."""
+    caches = init_caches(cfg, 1, 1, device="meta")
+    table = [_CACHE_AXES[blk] for blk, _ in layer_kinds(cfg)]
+    return _pair_axes(table, caches, "caches", "cache_axes")
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +395,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int,
     Python int). Returns (logits (B, V), caches): the list it was given,
     updated in place (KV caches written, RWKV caches replaced).
     ``on_layer``: see ``_run_layers``."""
-    x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+    x = embed(gather(params["embed"]), tokens).to(torch_dtype(cfg.dtype))
     pos = int(pos)
     positions = torch.arange(pos, pos + 1, device=x.device)
     # int32, as the decode kernel takes it; the attention layers' caches

@@ -13,8 +13,8 @@ corrections, the decoupled decay term, lr times the step.
 ``state_axes`` gives the moments the parameters' logical axes (the
 launcher's mesh shards them as it shards the parameters). ``global_norm``
 reads DTensor gradients shard by shard; ``update`` then takes that norm
-from outside, given the local shards. ``abstract_state`` serves the
-reference's dry-run and is not ported.
+from outside, given the local shards. ``abstract_state`` is the state on
+the meta device, for the dry run (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -89,6 +89,14 @@ def init(params) -> AdamWState:
     dev = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def abstract_state(params) -> AdamWState:
+    """The state of ``init(params)`` on the meta device, without memory:
+    float32 moments shaped as the parameters and an int32 scalar step."""
+    meta = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=tree_map(meta, params), v=tree_map(meta, params))
 
 
 def state_axes(param_axes) -> AdamWState:
